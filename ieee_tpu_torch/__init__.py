@@ -1,0 +1,15 @@
+"""ieee_tpu_torch: the PyTorch/CUDA port of ``ieee_tpu`` for NVIDIA Hopper.
+
+The JAX package ``ieee_tpu`` stays in the repository unchanged as the
+reference; this package mirrors its module paths and names, imports
+``torch`` and never ``jax`` or ``ieee_tpu``. Every Pallas kernel on a ported
+path is a hand-written CUDA kernel (``csrc/``, built by ``ops/_build.py``)
+with its plain PyTorch version beside it (``ops/kernels/``).
+
+Ported so far: the IEEE retrieval path (eval only): config, datasets and
+loaders, the test transform, ``IEEE3modalPart`` with its folded fast-eval
+head, the distmat, CMC/mAP, the eval engine and the CLI
+(``python -m ieee_tpu_torch.main_multimodal``).
+"""
+
+__version__ = "0.1.0"

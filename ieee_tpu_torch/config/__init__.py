@@ -1,0 +1,13 @@
+from .node import ConfigNode
+from .defaults import (
+    get_default_config,
+    imagedata_kwargs,
+    engine_run_kwargs,
+)
+
+__all__ = [
+    "ConfigNode",
+    "get_default_config",
+    "imagedata_kwargs",
+    "engine_run_kwargs",
+]

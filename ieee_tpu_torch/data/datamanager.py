@@ -1,0 +1,115 @@
+"""Image data manager (counterpart of ``ieee_tpu/data/datamanager.py``;
+reference ``torchreid/data/datamanager.py:90-348``).
+
+This slice builds what evaluation needs: the sum-of-sources train set (for
+``num_train_pids``, which sizes the classifiers) and per-target
+query/gallery test loaders yielding uint8 numpy batches. The train loader
+and its samplers come with the training slice; asking for them raises.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+from .datasets import init_image_dataset
+from .loader import DataLoader
+from .transforms import build_transforms
+
+__all__ = ["ImageDataManager"]
+
+
+class ImageDataManager:
+    data_type = "image"
+
+    def __init__(self, root="", sources=None, targets=None, height=256,
+                 width=128, transforms="random_flip", k_tfm=1,
+                 norm_mean=None, norm_std=None, use_gpu=False, split_id=0,
+                 combineall=False, load_train_targets=False,
+                 batch_size_train=32, batch_size_test=32, workers=4,
+                 num_instances=4, num_cams=1, num_datasets=1,
+                 train_sampler="RandomSampler",
+                 train_sampler_t="RandomSampler", seed=None, verbose=True,
+                 prefetch=2, decode_cache=False, device_cache=False,
+                 **dataset_kwargs):
+        del use_gpu, num_cams, num_datasets, train_sampler_t, seed
+        if decode_cache or device_cache or load_train_targets:
+            raise NotImplementedError(
+                "data.decode_cache, data.device_cache and "
+                "data.load_train_targets are not ported yet")
+        self.sources = [sources] if isinstance(sources, str) else sources
+        if self.sources is None:
+            raise ValueError("sources must not be None")
+        self.targets = [targets] if isinstance(targets, str) else targets
+        if self.targets is None:
+            self.targets = self.sources
+        self.height = height
+        self.width = width
+        self.k_tfm = int(k_tfm)
+        self.batch_size_train = batch_size_train
+        self.num_instances = num_instances
+        self.train_sampler = train_sampler
+        self.transform_tr, self.transform_te = build_transforms(
+            height, width, transforms=transforms, norm_mean=norm_mean,
+            norm_std=norm_std)
+
+        common = dict(mode="train", combineall=combineall, root=root,
+                      split_id=split_id, height=height, width=width,
+                      verbose=verbose, **dataset_kwargs)
+        if verbose:
+            print("=> Loading train (source) dataset")
+        trainset = sum(
+            (init_image_dataset(name, **common) for name in self.sources[1:]),
+            init_image_dataset(self.sources[0], **common),
+        )
+        self.trainset = trainset
+        self._num_train_pids = trainset.num_train_pids
+        self._num_train_cams = trainset.num_train_cams
+        first = trainset.train[0][0]
+        self._num_streams = (len(first) if isinstance(first, (list, tuple))
+                             else 1)
+
+        if verbose:
+            print("=> Loading test (target) dataset")
+        self.test_loader: Dict[str, Dict[str, DataLoader]] = {}
+        for name in self.targets:
+            sets = {
+                mode: init_image_dataset(
+                    name, mode=mode, combineall=combineall, root=root,
+                    split_id=split_id, height=height, width=width,
+                    verbose=False, **dataset_kwargs)
+                for mode in ("query", "gallery")
+            }
+            self.test_loader[name] = {
+                mode: DataLoader(ds, sampler=range(len(ds)),
+                                 batch_size=batch_size_test, drop_last=False,
+                                 workers=workers, prefetch=prefetch)
+                for mode, ds in sets.items()
+            }
+
+        if verbose:
+            print("\n  **************** Summary ****************")
+            print(f"  source            : {self.sources}")
+            print(f"  # source datasets : {len(self.sources)}")
+            print(f"  # source ids      : {self.num_train_pids}")
+            print(f"  # source images   : {len(trainset.train)}")
+            print(f"  # source cameras  : {self.num_train_cams}")
+            print(f"  target            : {self.targets}")
+            print("  *****************************************\n")
+
+    @property
+    def num_train_pids(self):
+        return self._num_train_pids
+
+    @property
+    def num_train_cams(self):
+        return self._num_train_cams
+
+    @property
+    def num_streams(self):
+        """1 = single image per item; >1 = multi-modal image list."""
+        return self._num_streams
+
+    @property
+    def train_loader(self):
+        raise NotImplementedError(
+            f"the train loader ({self.train_sampler}) is not ported yet")

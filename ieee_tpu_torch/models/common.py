@@ -1,0 +1,169 @@
+"""Shared building blocks of the port's models.
+
+Counterpart of ``ieee_tpu/models/common.py``. Conventions, as in the JAX
+package: parameters are float32 masters cast to the compute ``dtype``
+(bfloat16 on the card) at each op; BatchNorm statistics are float32.
+Activations are NCHW tensors in ``torch.channels_last`` memory, so the
+(N*H*W, C) view a 1x1 conv-as-matmul kernel takes is free.
+
+State-dict keys follow the reference (torchvision / torchreid) layout, so
+reference checkpoints load directly and ``ieee_tpu``'s converter maps them.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.kernels.matmul_bn import mm_affine_act
+
+__all__ = ["FastBatchNorm", "ConvBN", "FusedConvBN1x1", "fused_conv_bn_1x1",
+           "fuse_worthwhile", "global_avg_pool", "global_max_pool",
+           "adaptive_avg_pool"]
+
+
+def fuse_worthwhile(k_in: int, c_out: int, min_dim: int = 384) -> bool:
+    """Per-site gate for the fused 1x1 path, the JAX package's
+    ``models/resnet.py:fuse_worthwhile``: both channel dims at least
+    ``min_dim``. At full width it admits layer4's cb1, cb3 and downsample,
+    CIM and the reduce layer."""
+    return min(k_in, c_out) >= min_dim
+
+
+class FastBatchNorm(nn.Module):
+    """BatchNorm with float32 statistics and compute-dtype normalisation
+    (``ieee_tpu/models/common.py:FastBatchNorm``).
+
+    It holds flax's state, not torch's: the running variance is the BIASED
+    batch variance (one-pass E[x^2] - m^2) and the running update is
+    ``momentum * running + (1 - momentum) * batch`` with flax's momentum 0.9
+    (torch's 0.1). Keys match ``nn.BatchNorm2d`` (weight, bias, running_mean,
+    running_var, num_batches_tracked). Channels are dim 1 of the input.
+    """
+
+    def __init__(self, num_features: int, momentum: float = 0.9,
+                 eps: float = 1e-5, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.num_features = num_features
+        self.momentum = momentum
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+        self.register_buffer("num_batches_tracked",
+                             torch.zeros((), dtype=torch.long))
+
+    def folded(self, mean=None, var=None):
+        """(inv, shift) in f32 such that bn(x) = x * inv + shift."""
+        mean = self.running_mean if mean is None else mean
+        var = self.running_var if var is None else var
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        return inv, self.bias - mean * inv
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        if self.training:
+            dims = [d for d in range(x.ndim) if d != 1]
+            xf = x.float()
+            mean = xf.mean(dims)
+            var = (xf * xf).mean(dims) - mean * mean
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_((1 - m) * mean)
+                self.running_var.mul_(m).add_((1 - m) * var)
+                self.num_batches_tracked.add_(1)
+            inv, shift = self.folded(mean, var)
+        else:
+            inv, shift = self.folded()
+        dt = self.dtype
+        return (x.to(dt) * inv.to(dt).view(shape)
+                + shift.to(dt).view(shape))
+
+
+def conv_bn(x, conv: nn.Conv2d, bn: FastBatchNorm, nonlinear=None,
+            dtype=torch.bfloat16):
+    """Conv (no bias) in ``dtype`` + BN [+ ReLU for ``nonlinear="relu"``]:
+    the plain path."""
+    y = bn(F.conv2d(x.to(dtype), conv.weight.to(dtype), None, conv.stride,
+                    conv.padding))
+    return F.relu(y) if nonlinear == "relu" else y
+
+
+def fused_conv_bn_1x1(x, weight, bn: FastBatchNorm, relu: bool,
+                      residual=None):
+    """Eval 1x1 conv + folded BN [+ ReLU] through the mm_affine kernel.
+
+    ``x`` (N, C_in, H, W) is read as its (N*H*W, C_in) rows (a free view
+    when it is channels_last); the result is (N, C_out, H, W) bf16 in
+    channels_last memory. With ``residual`` the output is bn(conv(x)) +
+    residual without ReLU; the caller applies it (the JAX package's
+    ``FusedConvBN1x1`` contract)."""
+    if relu and residual is not None:
+        raise ValueError("residual variant applies relu outside")
+    n, cin, h, w = x.shape
+    cout = weight.shape[0]
+    a = x.permute(0, 2, 3, 1).reshape(-1, cin)
+    inv, shift = bn.folded()
+    y = mm_affine_act(a, weight.reshape(cout, cin).t(), inv, shift, relu)
+    if residual is not None:
+        y = y + residual.permute(0, 2, 3, 1).reshape(-1, cout).to(y.dtype)
+    return y.view(n, h, w, cout).permute(0, 3, 1, 2)
+
+
+class ConvBN(nn.Module):
+    """Conv (no bias) + BatchNorm [+ ReLU]: the reference's DimReduceLayer
+    (``layers.0`` conv, ``layers.1`` BN) and the JAX package's ``ConvBN``."""
+
+    def __init__(self, in_channels: int, features: int, kernel: int = 1,
+                 stride: int = 1, padding: int = 0, nonlinear=None,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.nonlinear = nonlinear
+        self.dtype = dtype
+        self.layers = nn.Sequential(
+            nn.Conv2d(in_channels, features, kernel, stride, padding,
+                      bias=False),
+            FastBatchNorm(features, dtype=dtype),
+        )
+
+    def forward(self, x):
+        return conv_bn(x, self.layers[0], self.layers[1], self.nonlinear,
+                       self.dtype)
+
+
+class FusedConvBN1x1(ConvBN):
+    """Drop-in for a 1x1 stride-1 ``ConvBN`` whose eval forward is the
+    mm_affine kernel (``ieee_tpu/models/common.py:FusedConvBN1x1``, eval
+    branch). Same parameters and keys as ``ConvBN``. Its training forward
+    (the ``mm_bn_act_train`` kernels) comes with the training slice."""
+
+    def __init__(self, in_channels: int, features: int, nonlinear=None,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__(in_channels, features, 1, 1, 0, nonlinear, dtype)
+
+    def forward(self, x, residual=None):
+        if self.training:
+            raise NotImplementedError(
+                "FusedConvBN1x1 training (mm_bn_act_train) is not ported yet")
+        return fused_conv_bn_1x1(x, self.layers[0].weight, self.layers[1],
+                                 self.nonlinear == "relu", residual)
+
+
+def global_avg_pool(x):
+    """(B, C, H, W) -> (B, C)."""
+    return x.mean((2, 3))
+
+
+def global_max_pool(x):
+    """(B, C, H, W) -> (B, C)."""
+    return x.amax((2, 3))
+
+
+def adaptive_avg_pool(x, out_h: int, out_w: int):
+    """(B, C, H, W) -> (B, C, out_h, out_w) with AdaptiveAvgPool2d's buckets
+    [floor(i*H/out), ceil((i+1)*H/out)), which overlap when ``out_h`` does
+    not divide H (P = 6 stripes of a 16-row map at 256x128)."""
+    return F.adaptive_avg_pool2d(x, (out_h, out_w))

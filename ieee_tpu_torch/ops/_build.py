@@ -1,0 +1,151 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Every ``ieee_tpu_torch/csrc/*.cu`` source has a plain C interface. At first
+use, each source is compiled by its own ``nvcc`` process (all started
+together) for ``sm_90a``, the objects are linked into one shared library,
+and the library is loaded with ``ctypes``. No PyTorch header is included, so
+a build takes seconds. The library lands in ``ieee_tpu_torch/_kernels/<hash>/``,
+keyed by a hash of the sources and flags, so an edited source rebuilds and an
+unchanged one loads the library already built.
+
+Nothing here runs at import time: the CPU tests import every kernel module on
+machines without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+__all__ = ["load_library", "build_seconds", "build_log", "check", "stream_ptr"]
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG / "_kernels"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signatures of csrc/*.cu; every function returns a cudaError_t as int
+_SIGNATURES = {
+    "ieee_distmat_f32": [_P, _P, _P, _I, _I, _I, _P],
+    "ieee_mm_affine_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ieee_partpool": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+}
+
+_lock = threading.Lock()
+_state: dict = {"lib": None, "seconds": None}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels of "
+        "ieee_tpu_torch cannot be built, and a CUDA tensor has no other path")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest(sources) -> str:
+    h = hashlib.sha256()
+    for f in sources:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(ARCH_FLAGS + CFLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _compile(out_dir: Path, sources) -> None:
+    nvcc = _nvcc()
+    tmp = Path(tempfile.mkdtemp(prefix="build-", dir=out_dir.parent))
+    try:
+        procs = []
+        for src in sources:
+            obj = tmp / (src.stem + ".o")
+            cmd = [nvcc, *ARCH_FLAGS, *CFLAGS, "-Xptxas", "-v", "-c",
+                   str(src), "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for src, _, p in procs:
+            out, _ = p.communicate()
+            logs.append(f"== {src.name}\n{out}")
+            if p.returncode != 0:
+                failed.append(src.name)
+        (tmp / "build.log").write_text("\n".join(logs))
+        if failed:
+            raise RuntimeError(
+                f"nvcc failed on {failed}:\n" + "\n".join(logs))
+        lib = tmp / "libieee_kernels.so"
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", *[str(o) for _, o, _ in procs],
+             "-o", str(lib)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        # publish atomically: a reader sees the whole directory or none
+        os.replace(tmp, out_dir)
+    finally:
+        if tmp.exists():
+            shutil.rmtree(tmp, ignore_errors=True)
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; raises if it cannot."""
+    with _lock:
+        if _state["lib"] is not None:
+            return _state["lib"]
+        t0 = time.perf_counter()
+        sources = _sources()
+        out_dir = BUILD_ROOT / _digest(sources)
+        if not (out_dir / "libieee_kernels.so").is_file():
+            BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+            _compile(out_dir, sources)
+        lib = ctypes.CDLL(str(out_dir / "libieee_kernels.so"))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _state["lib"] = lib
+        _state["seconds"] = time.perf_counter() - t0
+        return lib
+
+
+def build_seconds():
+    """Seconds the first ``load_library`` call took (build included), or
+    None before it ran."""
+    return _state["seconds"]
+
+
+def build_log() -> str:
+    """The nvcc output (``-Xptxas -v``: registers, shared memory, spills) of
+    the loaded library's build."""
+    lib = load_library()
+    return (Path(lib._name).parent / "build.log").read_text()
+
+
+def check(code: int, name: str) -> None:
+    """Raise if a kernel launch returned a CUDA error."""
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {code}")
+
+
+def stream_ptr(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,25 @@
+"""The port's hand-written Hopper kernels, one module each.
+
+Each module holds the wrapper a caller uses and the kernel's plain PyTorch
+version. The wrapper takes the plain version for a CPU tensor and launches
+the CUDA kernel for a CUDA tensor (or raises); it adds one to its launch
+count each time it launches the kernel, and nowhere else, so a run can show
+that its path went through the kernels.
+"""
+
+from __future__ import annotations
+
+from collections import Counter
+
+__all__ = ["LAUNCHES", "reset_launch_counts", "launch_counts"]
+
+#: kernel name -> number of launches since the last reset
+LAUNCHES: Counter = Counter()
+
+
+def reset_launch_counts() -> None:
+    LAUNCHES.clear()
+
+
+def launch_counts() -> dict:
+    return {k: LAUNCHES[k] for k in ("distmat", "partpool", "mm_affine")}

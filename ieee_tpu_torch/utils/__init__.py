@@ -1,0 +1,4 @@
+from .loggers import Logger
+from .tools import mkdir_if_missing, read_image, set_random_seed
+
+__all__ = ["Logger", "mkdir_if_missing", "read_image", "set_random_seed"]
