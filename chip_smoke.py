@@ -8,18 +8,36 @@ Phases (any failure raises and exits non-zero):
 
 1. The card's name and power limit; the kernels' build (``nvcc`` for
    ``sm_90a``, one process per source) and its time.
-2. Each kernel at the main path's shapes, plus ragged edges, against its
+2. Each kernel at the main paths' shapes, plus ragged edges, against its
    plain PyTorch version on the same inputs (stated tolerance), with the
-   median time of each over repeated launches (CUDA events).
-3. The main path through the CLI, ``ieee_tpu_torch.main_multimodal``, with
+   median time of each over repeated launches (CUDA events), the time of
+   the PyTorch library call that computes the same product, and the
+   least time the card could take (bytes over 3.35 TB/s or operations over
+   the type's peak, whichever is larger). The train kernels run at the 33
+   fused sites of one train step at batch 128 (layer4, CIM, reduce), the
+   CIM site at batch 8, the reduce site at N = 8 and 48, and a ragged N;
+   then the whole ``mm_bn_act_train`` op, forward and backward, against its
+   plain version.
+3. The eval path through the CLI, ``ieee_tpu_torch.main_multimodal``, with
    ``test.evaluate True`` on ``synthetic_mm`` at 256x128, batch 100,
    random weights: the launch counts are set to 0 just before and read
-   just after, and every kernel must have launched.
-4. The engine API at the benchmark's scale (171 pids: 170 query x 340
+   just after, and every eval kernel must have launched.
+4. The engine's eval at the benchmark's scale (171 pids: 170 query x 340
    gallery triplets), fused (kernels) and plain: eval triplets/s of each and
    the cosine between their features (>= 0.999).
 5. The distmat at RGBNT201's 836 x 836 test size and at Market-1501 scale
    (3368 x 15913 x 2304).
+6. The training path through the CLI: the headline config trains one epoch
+   on ``synthetic_mm`` at 256x128, batch 8 (the config's), random weights,
+   then evaluates. Counts set to 0 just before, read just after: all six
+   kernels must launch, the train kernels a multiple of 33 times, and the
+   epoch's loss must be finite.
+7. The engine's train step at ``bench.py``'s protocol (batch 128, 171 pids,
+   one fixed batch on the card, 3 warm-up and 20 timed steps), fused
+   (kernels, 33 launches of each train kernel per step) and plain: train
+   triplets/s, peak device memory and a ``torch.profiler`` summary by
+   kernel; and the first step of each, from the same weights and batch,
+   must agree (loss, and every gradient tensor's cosine).
 
 The line before the last is the JSON list of kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -28,6 +46,7 @@ The line before the last is the JSON list of kernels; the last line is
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -44,7 +63,39 @@ KERNELS = {
                  "ieee_tpu/ops/pallas/partpool.py:84"),
     "mm_affine": ("ieee_tpu_torch/csrc/mm_affine.cu",
                   "ieee_tpu/ops/pallas/matmul_bn.py:346"),
+    "mm_stats": ("ieee_tpu_torch/csrc/mm_bn_train.cu",
+                 "ieee_tpu/ops/pallas/matmul_bn.py:107"),
+    "mm_bn_da": ("ieee_tpu_torch/csrc/mm_bn_train.cu",
+                 "ieee_tpu/ops/pallas/matmul_bn.py:180"),
+    "mm_bn_dw": ("ieee_tpu_torch/csrc/mm_bn_train.cu",
+                 "ieee_tpu/ops/pallas/matmul_bn.py:223"),
 }
+TRAIN_KERNELS = ("mm_stats", "mm_bn_da", "mm_bn_dw")
+# least cosine between a fused and a plain step's gradient tensor (phase
+# 7): bf16 rounding noise in the early trunk layers' gradients at batch 128
+# (measured on an H100: 0.84 fused vs plain; each bf16 path against the f32
+# step is printed beside it)
+GRAD_COS = 0.8
+
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, FLOP/s by type
+HBM_BPS = 3.35e12
+PEAK = {"bf16": 989e12, "f32": 67e12}
+
+# the fused 1x1 sites of one train step at batch 128 (N = 128*16*8 rows at
+# the 16x8 layer4 map): (N, K, C, relu, sites per step)
+TRAIN_SITES = (
+    (16384, 1024, 512, True, 3),    # layer4.0 cb1, 3 trunks
+    (16384, 512, 2048, False, 9),   # layer4.* cb3 (+ identity)
+    (16384, 1024, 2048, False, 3),  # layer4.0 downsample
+    (16384, 2048, 512, True, 6),    # layer4.1-2 cb1
+    (16384, 2048, 2048, True, 6),   # CIM convOne, convAvgRest
+    (128, 2048, 768, True, 3),      # reduce, global rows
+    (768, 2048, 768, True, 3),      # reduce, part rows (B*6)
+)
+# checked but outside the per-step sums: CIM and reduce at the config's
+# batch 8, and a ragged N
+TRAIN_EXTRA = ((1024, 2048, 2048, True, 0), (8, 2048, 768, True, 0),
+               (48, 2048, 768, True, 0), (1037, 1024, 2048, False, 0))
 
 
 def die(msg: str, code: int = 2):
@@ -76,6 +127,15 @@ def median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def bound_ms(flops: float, nbytes: float, kind: str):
+    """(least ms, "operations" or "bytes"): the larger of the operations
+    over the type's peak and the bytes (each input read once, each output
+    written once) over the memory rate."""
+    t_ops, t_bytes = flops / PEAK[kind] * 1e3, nbytes / HBM_BPS * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
 def randn(shape, seed, scale=1.0):
     import numpy as np
     import torch
@@ -86,7 +146,8 @@ def randn(shape, seed, scale=1.0):
 
 
 def check_kernels(results):
-    """Phase 2: every kernel at the main path's shapes vs its plain version."""
+    """Phase 2: every kernel at the main paths' shapes vs its plain
+    version; times of the kernel, the plain version and the library call."""
     import torch
 
     from ieee_tpu_torch.ops.kernels.distmat import (
@@ -96,15 +157,22 @@ def check_kernels(results):
     from ieee_tpu_torch.ops.kernels.partpool import (
         fused_partpool_project, fused_partpool_project_plain)
 
-    def record(name, shape, got, want, tol, ms, plain_ms):
-        """``tol``: the allowed |got - want|, a number or a tensor."""
+    def record(name, shape, got, want, tol, fn, plain_fn, library_fn,
+               bound, weight=0, iters=20):
+        """``tol``: the allowed |got - want|, a number or a tensor;
+        ``bound``: (ms, bound_by); ``weight``: how many times the case
+        counts in the kernel's reported time."""
         diff = (got - want).abs()
         err = diff.max().item()
         ok = bool((diff <= tol).all())
         tol_s = (f"{tol:.3e}" if isinstance(tol, float)
                  else f"{tol.max().item():.3e} at most, elementwise")
+        ms, plain_ms = median_ms(fn, iters), median_ms(plain_fn, iters)
+        lib_ms = None if library_fn is None else median_ms(library_fn, iters)
+        lib_s = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
         print(f"kernel {name} {shape}: max_abs_err {err:.3e} (tol {tol_s}) "
-              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms"
+              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library {lib_s} "
+              f"bound {bound[0]:.4f} ms ({bound[1]})"
               + ("" if ok else "  MISMATCH"))
         if not ok:
             raise AssertionError(f"{name} {shape} disagrees with its plain "
@@ -112,53 +180,208 @@ def check_kernels(results):
         r = results.setdefault(name, {"max_abs_err": 0.0, "cases": []})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["cases"].append({"shape": shape, "ms": ms, "plain_ms": plain_ms,
-                           "max_abs_err": err})
+                           "library_ms": lib_ms, "bound_ms": bound[0],
+                           "bound_by": bound[1], "max_abs_err": err,
+                           "weight": weight})
 
     # distmat: full f32 against cuBLAS f32 (TF32 off); tolerance a few f32
-    # ulps of the largest entry (the two sum K products in other orders)
-    for m, n, k in ((836, 836, 2304), (170, 340, 2304), (37, 300, 19)):
+    # ulps of the largest entry (the two sum K products in other orders).
+    # Library call: the f32 product with the norms, as one addmm
+    for i, (m, n, k) in enumerate(((836, 836, 2304), (170, 340, 2304),
+                                   (37, 300, 19))):
         q, g = randn((m, k), 1).abs(), randn((n, k), 2).abs()
         got, want = euclidean_sq(q, g), euclidean_sq_plain(q, g)
         torch.cuda.synchronize()
         record("distmat", [m, n, k], got, want,
                1e-5 * want.abs().max().item(),
-               median_ms(lambda: euclidean_sq(q, g)),
-               median_ms(lambda: euclidean_sq_plain(q, g)))
+               lambda: euclidean_sq(q, g), lambda: euclidean_sq_plain(q, g),
+               lambda: torch.addmm((q * q).sum(1)[:, None]
+                                   + (g * g).sum(1)[None, :], q, g.t(),
+                                   alpha=-2.0),
+               bound_ms(2.0 * m * n * k, 4.0 * (m * k + n * k + m * n),
+                        "f32"), weight=int(i == 0))
 
     # partpool: the eval head's call (B=100, 16x8x2048 f32 map, P=6 with
     # overlapping stripes, 2048->768), a bf16 map and a ragged batch; the
-    # pooled rows round to bf16 in both, so allow 1e-2 of the output scale
-    for b, dtype in ((100, torch.float32), (100, torch.bfloat16),
-                     (37, torch.float32)):
+    # pooled rows round to bf16 in both, so allow 1e-2 of the output scale.
+    # No single PyTorch call pools stripes and projects
+    for i, (b, dtype) in enumerate(((100, torch.float32),
+                                    (100, torch.bfloat16),
+                                    (37, torch.float32))):
         x = randn((b, 16, 8, 2048), 3).abs().to(dtype)
         w = randn((2048, 768), 4, 2048 ** -0.5)
         s, t = randn((768,), 5).abs() + 0.5, randn((768,), 6)
         got = fused_partpool_project(x, w, s, t, parts=6)
         want = fused_partpool_project_plain(x, w, s, t, parts=6)
         torch.cuda.synchronize()
+        flops = 2.0 * b * 7 * 128 * 2048 + 2.0 * b * 7 * 2048 * 768
+        nbytes = x.element_size() * x.numel() + 4 * (2048 * 768 + 2 * 768
+                                                     + b * 7 * 768)
         record("partpool", [b, 16, 8, 2048, 768, str(dtype)[6:]], got, want,
                1e-2 * max(1.0, want.abs().max().item()),
-               median_ms(lambda: fused_partpool_project(x, w, s, t, 6)),
-               median_ms(lambda: fused_partpool_project_plain(x, w, s, t, 6)))
+               lambda: fused_partpool_project(x, w, s, t, 6),
+               lambda: fused_partpool_project_plain(x, w, s, t, 6), None,
+               bound_ms(flops, nbytes, "bf16"), weight=int(i == 0))
 
     # mm_affine: layer4's seven sites per trunk at batch 100 (16x8 map),
     # CIM and reduce (plain-head sites) and a ragged N; bf16 outputs may
-    # differ by one bf16 step (2^-8 relative) where f32 sums differ
+    # differ by one bf16 step (2^-7 relative allowed) where f32 sums
+    # differ. Library call: the bf16 torch.matmul of the same operands
     n = 100 * 16 * 8
+    per_trunk = {(1024, 512): 1, (512, 2048): 3, (1024, 2048): 1,
+                 (2048, 512): 2}
     for rows, k, c, relu in ((n, 1024, 512, True), (n, 512, 2048, False),
                              (n, 1024, 2048, False), (n, 2048, 512, True),
                              (n, 2048, 2048, True), (600, 2048, 768, True),
                              (1037, 2048, 768, True)):
         a = randn((rows, k), 7).to(torch.bfloat16)
         w = randn((k, c), 8, k ** -0.5)
+        w16 = w.to(torch.bfloat16)
         inv, shift = randn((c,), 9).abs() + 0.5, randn((c,), 10)
         got = mm_affine_act(a, w, inv, shift, relu).float()
         want = mm_affine_act_plain(a, w, inv, shift, relu).float()
         torch.cuda.synchronize()
         record("mm_affine", [rows, k, c, relu], got, want,
                2 ** -7 * want.abs().clamp_min(1.0),
-               median_ms(lambda: mm_affine_act(a, w, inv, shift, relu)),
-               median_ms(lambda: mm_affine_act_plain(a, w, inv, shift, relu)))
+               lambda: mm_affine_act(a, w, inv, shift, relu),
+               lambda: mm_affine_act_plain(a, w, inv, shift, relu),
+               lambda: torch.matmul(a, w16),
+               bound_ms(2.0 * rows * k * c,
+                        2.0 * (rows * k + k * c + rows * c) + 8.0 * c,
+                        "bf16"),
+               weight=per_trunk.get((k, c), 0) if rows == n else 0)
+
+    check_train_kernels(record)
+
+
+def check_train_kernels(record):
+    """Phase 2, train kernels: mm_stats, mm_bn_da and mm_bn_dw at every
+    fused site of one batch-128 train step, and the extra cases. Library
+    call: the bf16 torch.matmul of the same product (y = a @ w;
+    dy @ w^T; a^T @ dy), without the statistics or the dy recompute."""
+    import torch
+
+    from ieee_tpu_torch.ops.kernels.matmul_bn import (
+        dy_plain, mm_bn_da, mm_bn_da_plain, mm_bn_dw, mm_bn_dw_plain,
+        mm_stats, mm_stats_plain)
+
+    for n, k, c, relu, sites in TRAIN_SITES + TRAIN_EXTRA:
+        iters = 10 if n >= 16384 else 20
+        a = randn((n, k), 20).to(torch.bfloat16)
+        w = randn((k, c), 21, k ** -0.5)
+        w16 = w.to(torch.bfloat16)
+        d = randn((n, c), 22).to(torch.bfloat16)
+        y = randn((n, c), 23).to(torch.bfloat16)
+        vecs = torch.stack([randn((c,), 24).abs() + 0.5, randn((c,), 25),
+                            0.1 * randn((c,), 26), randn((c,), 27).abs() + 0.5,
+                            0.1 * randn((c,), 28), 0.1 * randn((c,), 29)])
+        shape = [n, k, c, relu]
+        flops = 2.0 * n * k * c
+
+        # mm_stats: y one bf16 step (+1e-5 of the largest |y| where the f32
+        # sums differ near zero); sums 1e-5 of sum|y| and sum y^2
+        got_y, got_st = mm_stats(a, w)
+        want_y, want_st = mm_stats_plain(a, w)
+        torch.cuda.synchronize()
+        y32 = a.float() @ w16.float()
+        st_tol = 1e-5 * torch.stack([y32.abs().sum(0), (y32 * y32).sum(0)])
+        if not bool(((got_st - want_st).abs() <= st_tol).all()):
+            raise AssertionError(f"mm_stats {shape}: channel sums disagree: "
+                                 f"{(got_st - want_st).abs().max().item()}")
+        del y32
+        want_y = want_y.float()
+        record("mm_stats", shape, got_y.float(), want_y,
+               2 ** -7 * want_y.abs() + 1e-5 * want_y.abs().max(),
+               lambda: mm_stats(a, w), lambda: mm_stats_plain(a, w),
+               lambda: torch.matmul(a, w16),
+               bound_ms(flops, 2.0 * (n * k + k * c + n * c) + 8.0 * c,
+                        "bf16"), weight=sites, iters=iters)
+
+        # mm_bn_da: dy is bit-identical; one bf16 step + 1e-5 sum|dy||w|
+        dy = dy_plain(d, y, vecs, relu)
+        got = mm_bn_da(d, y, vecs, w, relu).float()
+        want = mm_bn_da_plain(d, y, vecs, w, relu).float()
+        torch.cuda.synchronize()
+        tol = 2 ** -7 * want.abs() + 1e-5 * (dy.float().abs()
+                                             @ w16.float().abs().t())
+        record("mm_bn_da", shape, got, want, tol,
+               lambda: mm_bn_da(d, y, vecs, w, relu),
+               lambda: mm_bn_da_plain(d, y, vecs, w, relu),
+               lambda: torch.matmul(dy, w16.t()),
+               bound_ms(flops, 2.0 * (2 * n * c + k * c + n * k) + 24.0 * c,
+                        "bf16"), weight=sites, iters=iters)
+
+        # mm_bn_dw: f32 out, N products in another order: 1e-5 sum|a||dy|
+        got = mm_bn_dw(a, d, y, vecs, relu)
+        want = mm_bn_dw_plain(a, d, y, vecs, relu)
+        torch.cuda.synchronize()
+        tol = 1e-5 * (a.float().abs().t() @ dy.float().abs()) + 1e-30
+        record("mm_bn_dw", shape, got, want, tol,
+               lambda: mm_bn_dw(a, d, y, vecs, relu),
+               lambda: mm_bn_dw_plain(a, d, y, vecs, relu),
+               lambda: torch.matmul(a.t(), dy),
+               bound_ms(flops, 2.0 * (n * k + 2 * n * c) + 24.0 * c
+                        + 4.0 * k * c, "bf16"), weight=sites, iters=iters)
+        del a, w, w16, d, y, dy, got, want, tol
+    check_train_op()
+
+
+def check_train_op():
+    """Phase 2, the whole op: mm_bn_act_train forward and backward through
+    the kernels against ``plain=True`` on the same inputs. y may differ by
+    one bf16 step, which moves x-hat and rarely a ReLU mask: the bf16
+    outputs and the f32 gradients agree to relative Frobenius 2^-8, mean
+    and var to 1e-5 of the largest var."""
+    import torch
+
+    from ieee_tpu_torch.ops import kernels
+    from ieee_tpu_torch.ops.kernels.matmul_bn import mm_bn_act_train
+
+    for n, k, c, relu, res in ((16384, 2048, 512, True, False),
+                               (16384, 512, 2048, False, True),
+                               (16384, 2048, 2048, True, False),
+                               (768, 2048, 768, True, False),
+                               (1037, 1024, 2048, False, False)):
+        a = randn((n, k), 30).to(torch.bfloat16)
+        w = randn((k, c), 31, k ** -0.5)
+        d = randn((n, c), 32).to(torch.bfloat16)
+        r = randn((n, c), 33).to(torch.bfloat16) if res else None
+        outs = {}
+        for plain in (False, True):
+            kernels.reset_launch_counts()
+            leaves = [t.clone().float().requires_grad_() for t in (a, w)]
+            scale = (randn((c,), 34).abs() + 0.5).requires_grad_()
+            bias = randn((c,), 35).requires_grad_()
+            rr = r.clone().requires_grad_() if res else None
+            act, mean, var = mm_bn_act_train(leaves[0], leaves[1], scale,
+                                             bias, rr, relu, plain=plain)
+            act.backward(d)
+            torch.cuda.synchronize()
+            launched = [kernels.LAUNCHES[x] for x in TRAIN_KERNELS]
+            if launched != ([0, 0, 0] if plain else [1, 1, 1]):
+                raise AssertionError(f"op launches {launched} (plain={plain})")
+            outs[plain] = dict(act=act.float(), mean=mean, var=var,
+                               da=leaves[0].grad, dw=leaves[1].grad,
+                               dscale=scale.grad, dbias=bias.grad,
+                               dres=rr.grad.float() if res else None)
+        got, want = outs[False], outs[True]
+        vtol = 1e-5 * want["var"].abs().max().item()
+        errs = {}
+        for name in ("mean", "var"):
+            errs[name] = (got[name] - want[name]).abs().max().item()
+            if errs[name] > vtol:
+                raise AssertionError(f"op {name} {[n, k, c]}: {errs[name]}")
+        for name in ("act", "da", "dw", "dscale", "dbias", "dres"):
+            if want[name] is None:
+                continue
+            errs[name] = ((got[name] - want[name]).norm()
+                          / want[name].norm()).item()
+            if errs[name] > 2 ** -8:
+                raise AssertionError(f"op {name} {[n, k, c]}: relative "
+                                     f"{errs[name]}")
+        print(f"op mm_bn_act_train {[n, k, c, relu, res]}: "
+              + " ".join(f"{x} {v:.2e}" for x, v in errs.items())
+              + f" (mean/var abs tol {vtol:.2e}, rest relative 2^-8)")
 
 
 def main_path():
@@ -179,10 +402,13 @@ def main_path():
     print(f"main path: rank1 {rank1:.4f}, launches {counts}")
     if not 0.0 <= rank1 <= 1.0:
         raise AssertionError(f"rank-1 {rank1} outside [0, 1]")
-    missing = [k for k, v in counts.items() if v <= 0]
+    missing = [k for k in ("distmat", "partpool", "mm_affine")
+               if counts[k] <= 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
+        raise AssertionError(f"kernels not launched on the eval path: "
                              f"{missing}")
+    if any(counts[k] for k in TRAIN_KERNELS):
+        raise AssertionError(f"train kernels launched in eval: {counts}")
     return counts
 
 
@@ -259,7 +485,177 @@ def distmat_scale(results):
         raise AssertionError(f"distmat at Market scale: {err} > {tol}")
     results["distmat"]["cases"].append(
         {"shape": [3368, 15913, 2304], "ms": ms, "plain_ms": plain_ms,
-         "max_abs_err": err})
+         "library_ms": None, "bound_ms": None, "max_abs_err": err,
+         "weight": 0})
+
+
+def train_path():
+    """Phase 6: the CLI trains one epoch of the headline config, then
+    evaluates; returns the launch counts of its run."""
+    import torch
+
+    from ieee_tpu_torch import main_multimodal
+    from ieee_tpu_torch.ops import kernels
+
+    save_dir = os.path.join(ROOT, "log", "chip_smoke_train")
+    metrics = os.path.join(save_dir, "metrics.jsonl")
+    if os.path.exists(metrics):
+        os.remove(metrics)
+    argv = ["--config-file", CONFIG, "--device", "cuda",
+            "model.pretrained", "False",
+            "data.sources", "['synthetic_mm']",
+            "data.targets", "['synthetic_mm']",
+            "data.height", "256", "data.width", "128",
+            "data.save_dir", save_dir, "train.max_epoch", "1",
+            "train.print_freq", "4"]
+    kernels.reset_launch_counts()
+    rank1 = main_multimodal.main(argv)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    with open(metrics) as f:
+        records = [json.loads(line) for line in f]
+    epoch = next(r for r in records if r["kind"] == "train_epoch")
+    steps = counts["mm_stats"] // 33
+    print(f"train path: 1 epoch, loss {epoch['loss']:.4f}, rank1 "
+          f"{rank1:.4f}, launches {counts} ({steps} steps of 33 per train "
+          f"kernel)")
+    if not math.isfinite(epoch["loss"]):
+        raise AssertionError(f"train loss not finite: {epoch['loss']}")
+    if not 0.0 <= rank1 <= 1.0:
+        raise AssertionError(f"rank-1 {rank1} outside [0, 1]")
+    missing = [k for k, v in counts.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the train path: "
+                             f"{missing}")
+    train = {counts[k] for k in TRAIN_KERNELS}
+    if len(train) != 1 or counts["mm_stats"] % 33:
+        raise AssertionError(f"train kernels not 33 per step: {counts}")
+    return counts
+
+
+def profile_steps(step, n: int = 2):
+    """torch.profiler over ``n`` steps: device ms per step, the busy share
+    of the profiled wall time, and the top kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev = sum(e.self_device_time_total for e in rows) / 1e3  # us -> ms
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    top = [(e.key[:70], e.count // n, e.self_device_time_total / 1e3 / n)
+           for e in rows[:12]]
+    return dev / n, dev / wall_ms, top
+
+
+def engine_train(counts):
+    """Phase 7: the train step at bench.py's protocol, fused and plain."""
+    import torch
+
+    from ieee_tpu_torch.data import ImageDataManager
+    from ieee_tpu_torch.engine import Image3MEngine
+    from ieee_tpu_torch.models import build_model
+    from ieee_tpu_torch.ops import kernels
+    from ieee_tpu_torch.optim import build_lr_scheduler, build_optimizer
+
+    batch, num_pids = 128, 171
+    dm = ImageDataManager(sources="synthetic_mm", height=256, width=128,
+                          batch_size_train=batch, batch_size_test=100,
+                          workers=4, train_sampler="RandomIdentitySampler",
+                          num_instances=4, num_pids=num_pids, imgs_per_pid=8,
+                          verbose=False, seed=0)
+    data = next(iter(dm.train_loader))
+    first, rates = {}, {}
+    # fused and plain in bf16 (timed), then one plain step in f32 as the
+    # yardstick of bf16 rounding noise in the gradients
+    for name, fused, dtype in (("fused", True, "bfloat16"),
+                               ("plain", False, "bfloat16"),
+                               ("f32", False, "float32")):
+        model = build_model("ieee3modalPart", num_pids, "margin",
+                            pretrained=False, dtype=dtype, seed=1,
+                            fused_1x1=fused)
+        opt = build_optimizer(model, optim="sgd", lr=0.001, momentum=0.9,
+                              weight_decay=5e-4)
+        sched = build_lr_scheduler("multi_step", stepsize=[20, 40],
+                                   base_lr=0.001)
+        eng = Image3MEngine(dm, model, opt, sched, device="cuda", seed=0,
+                            margin=1.0)
+        imgs, pids = eng._put_batch(data)
+        # the first step, from the seed's weights: launches and gradients
+        kernels.reset_launch_counts()
+        m = eng.train_step(imgs, pids)
+        torch.cuda.synchronize()
+        launched = {k: kernels.LAUNCHES[k] for k in TRAIN_KERNELS}
+        want = 33 if fused else 0
+        if any(v != want for v in launched.values()):
+            raise AssertionError(f"{name} step launched {launched}, want "
+                                 f"{want} each")
+        first[name] = (m["loss"].item(),
+                       {n: p.grad.detach().float().clone()
+                        for n, p in model.named_parameters()})
+        if name == "f32":
+            break
+        for _ in range(2):  # warm-up: 3 steps with the first
+            eng.train_step(imgs, pids)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            m = eng.train_step(imgs, pids)
+        loss = m["loss"].item()  # syncs on the last step
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        rates[name] = 20 * batch / dt
+        dev_ms, busy, top = profile_steps(lambda: eng.train_step(imgs, pids))
+        print(f"engine train {name}: {rates[name]:.1f} triplets/s "
+              f"({dt / 20 * 1e3:.3f} ms/step, batch {batch}); last loss "
+              f"{loss:.4f}; peak memory {peak:.2f} GiB; launches of the "
+              f"first step {launched}; profiler: {dev_ms:.3f} device ms "
+              f"per step, busy {busy:.3f}")
+        for key, cnt, ms in top:
+            print(f"  {ms:8.3f} ms/step {cnt:4d}x {key}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"{name} train loss not finite: {loss}")
+        del model, opt, eng, m
+        torch.cuda.empty_cache()
+
+    # the first steps, from the same weights and batch: fused against
+    # plain (both bf16, rounding at other points: y, act, dy, da in the
+    # fused sites), and each against the f32 step
+    def cosines(a, b):
+        out = {}
+        for n, g in first[b][1].items():
+            f = first[a][1][n]
+            if n.startswith(("fc_", "REM.")) and n.endswith(
+                    (".0.bias", "conv_part.bias")):
+                continue  # zero by structure (a train BN follows): noise
+            if g.norm() == 0 and f.norm() == 0:
+                continue  # REM conv_query/conv_value: outside the forward
+            out[n] = ((f * g).sum() / (f.norm() * g.norm())).item()
+        return sorted(out.items(), key=lambda kv: kv[1])
+
+    lf, lp, l32 = (first[k][0] for k in ("fused", "plain", "f32"))
+    rel = abs(lf - lp) / abs(lp)
+    for a, b in (("fused", "f32"), ("plain", "f32")):
+        cs = cosines(a, b)
+        print(f"engine train {a} vs {b}, first step: loss relative "
+              f"{abs(first[a][0] - l32) / abs(l32):.2e}; gradient cosine "
+              f"min {cs[0][1]:.6f}, median {cs[len(cs) // 2][1]:.6f}")
+    cs = cosines("fused", "plain")
+    print(f"engine train fused vs plain, first step: loss {lf:.6f} vs "
+          f"{lp:.6f} (relative {rel:.2e}, tol 1e-2); gradient cosine min "
+          f"{cs[0][1]:.6f}, median {cs[len(cs) // 2][1]:.6f} over "
+          f"{len(cs)} tensors (bound {GRAD_COS}); lowest {cs[:3]}")
+    if rel > 1e-2 or cs[0][1] < GRAD_COS:
+        raise AssertionError("fused and plain train steps disagree")
 
 
 def main():
@@ -296,40 +692,47 @@ def main():
     check_kernels(results)
     print(f"phase kernels: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    counts = main_path()
-    print(f"phase main path: {time.perf_counter() - t0:.1f} s")
+    main_path()
+    print(f"phase eval path: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     engine_eval()
     print(f"phase engine eval: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     distmat_scale(results)
     print(f"phase distmat scale: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts = train_path()
+    print(f"phase train path: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    engine_train(counts)
+    print(f"phase engine train: {time.perf_counter() - t0:.1f} s")
 
-    # the reported time of each kernel: distmat at 836x836 (RGBNT201 test),
-    # partpool at the head's f32 call, mm_affine summed over the seven
-    # layer4 calls of one trunk at batch 100
-    def main_case(name):
-        cases = results[name]["cases"]
-        if name == "mm_affine":
-            per_trunk = [c for c in cases if c["shape"][0] == 12800
-                         and c["shape"][1:3] != [2048, 2048]]
-            weight = {(1024, 512): 1, (512, 2048): 3, (1024, 2048): 1,
-                      (2048, 512): 2}
-            ms = sum(weight[tuple(c["shape"][1:3])] * c["ms"]
-                     for c in per_trunk)
-            plain = sum(weight[tuple(c["shape"][1:3])] * c["plain_ms"]
-                        for c in per_trunk)
-            return ms, plain
-        return cases[0]["ms"], cases[0]["plain_ms"]
-
+    # each kernel's reported numbers: the weighted sum of its cases, where
+    # the weight is how often the case runs in the reported unit: distmat
+    # at 836x836 (RGBNT201 test), partpool at the head's f32 call,
+    # mm_affine over the seven layer4 calls of one trunk at batch 100, and
+    # each train kernel over the 33 fused sites of one train step at batch
+    # 128. launches: the train path's run (phase 6), which drives all six
     line = {"kernels": []}
     for name, (source, replaces) in KERNELS.items():
-        ms, plain_ms = main_case(name)
+        cases = [c for c in results[name]["cases"] if c["weight"]]
+
+        def total(key):
+            if any(c[key] is None for c in cases):
+                return None
+            return sum(c["weight"] * c[key] for c in cases)
+
+        ops_ms = sum(c["weight"] * c["bound_ms"] for c in cases
+                     if c["bound_by"] == "operations")
         line["kernels"].append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[name],
             "max_abs_err": results[name]["max_abs_err"],
-            "ms": ms, "plain_ms": plain_ms})
+            "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"),
+            "bound_by": ("operations" if ops_ms >= total("bound_ms") / 2
+                         else "bytes"),
+            "library_ms": total("library_ms")})
     print(card_line())
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -6,10 +6,11 @@ reference; this package mirrors its module paths and names, imports
 path is a hand-written CUDA kernel (``csrc/``, built by ``ops/_build.py``)
 with its plain PyTorch version beside it (``ops/kernels/``).
 
-Ported so far: the IEEE retrieval path (eval only): config, datasets and
-loaders, the test transform, ``IEEE3modalPart`` with its folded fast-eval
-head, the distmat, CMC/mAP, the eval engine and the CLI
-(``python -m ieee_tpu_torch.main_multimodal``).
+Ported so far: the IEEE retrieval path (config, datasets and loaders, the
+test transform, ``IEEE3modalPart`` with its folded fast-eval head, the
+distmat, CMC/mAP) and its training path (losses, optimizers, the P x K
+sampler, the flip, ``Image3MEngine``), with the CLI
+(``python -m ieee_tpu_torch.main_multimodal``) for both.
 """
 
 __version__ = "0.1.0"

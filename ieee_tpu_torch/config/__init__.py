@@ -3,6 +3,8 @@ from .defaults import (
     get_default_config,
     imagedata_kwargs,
     engine_run_kwargs,
+    lr_scheduler_kwargs,
+    optimizer_kwargs,
 )
 
 __all__ = [
@@ -10,4 +12,6 @@ __all__ = [
     "get_default_config",
     "imagedata_kwargs",
     "engine_run_kwargs",
+    "lr_scheduler_kwargs",
+    "optimizer_kwargs",
 ]

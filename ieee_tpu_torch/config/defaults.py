@@ -82,8 +82,9 @@ def get_default_config() -> ConfigNode:
     cfg.train.fixbase_epoch = 0
     cfg.train.open_layers = ["classifier"]
     # The training knobs below carry the JAX package's meaning (see
-    # ieee_tpu/config/defaults.py); they are kept so that every config loads
-    # to the same values in both packages. Training comes in a later slice.
+    # ieee_tpu/config/defaults.py), so every config loads to the same values
+    # in both packages. Not ported yet, and refused when asked for: fixbase
+    # (fixbase_epoch > 0), accum_steps > 1 (ROADMAP A.11, A.16).
     cfg.train.fixbase_bn_freeze = False
     cfg.train.fixbase_bn_eval = True
     cfg.train.staged_lr = False
@@ -143,13 +144,17 @@ def get_default_config() -> ConfigNode:
     cfg.cuda = ConfigNode()
     cfg.cuda.compute_dtype = "bfloat16"  # conv/matmul dtype on the card
     # (params are always float32 masters, as in the JAX package)
-    # eval 1x1 conv+BN sites that pass fuse_worthwhile run as the mm_affine
-    # CUDA kernel (models/common.py FusedConvBN1x1). On by default: the JAX
-    # package's default off rests on TPU timings, which say nothing here
+    # 1x1 conv+BN sites that pass fuse_worthwhile run as the fused CUDA
+    # kernels (models/common.py FusedConvBN1x1): mm_affine in eval, mm_stats,
+    # mm_bn_da and mm_bn_dw in training. On by default: the JAX package's
+    # default off rests on TPU timings, which say nothing here
     cfg.cuda.fused_1x1 = True
     # IEEE eval through the folded-BN head with the partpool CUDA kernel
     # (models/fast_eval.py); on by default for the same reason
     cfg.cuda.fused_eval = True
+    # the JAX package's whole-block backward (cfg.tpu.block_megakernel, off
+    # unless asked for); not ported yet: a training forward with it raises
+    cfg.cuda.block_megakernel = False
     cfg.cuda.prefetch = 2  # host loader prefetch depth (data/loader.py)
 
     return cfg
@@ -184,6 +189,32 @@ def imagedata_kwargs(cfg: ConfigNode) -> dict:
         cuhk03_labeled=cfg.cuhk03.labeled_images,
         cuhk03_classic_split=cfg.cuhk03.classic_split,
         market1501_500k=cfg.market1501.use_500k_distractors,
+    )
+
+
+def optimizer_kwargs(cfg: ConfigNode) -> dict:
+    return dict(
+        optim=cfg.train.optim,
+        lr=cfg.train.lr,
+        weight_decay=cfg.train.weight_decay,
+        momentum=cfg.sgd.momentum,
+        sgd_dampening=cfg.sgd.dampening,
+        sgd_nesterov=cfg.sgd.nesterov,
+        rmsprop_alpha=cfg.rmsprop.alpha,
+        adam_beta1=cfg.adam.beta1,
+        adam_beta2=cfg.adam.beta2,
+        staged_lr=cfg.train.staged_lr,
+        new_layers=cfg.train.new_layers,
+        base_lr_mult=cfg.train.base_lr_mult,
+    )
+
+
+def lr_scheduler_kwargs(cfg: ConfigNode) -> dict:
+    return dict(
+        lr_scheduler=cfg.train.lr_scheduler,
+        stepsize=cfg.train.stepsize,
+        gamma=cfg.train.gamma,
+        max_epoch=cfg.train.max_epoch,
     )
 
 

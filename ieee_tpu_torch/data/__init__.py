@@ -6,6 +6,7 @@ from .datasets import (
     register_image_dataset,
 )
 from .loader import DataLoader
+from .sampler import RandomIdentitySampler, build_train_sampler
 from .transforms import build_test_transform, build_transforms
 
 __all__ = [
@@ -15,6 +16,8 @@ __all__ = [
     "init_image_dataset",
     "register_image_dataset",
     "DataLoader",
+    "RandomIdentitySampler",
+    "build_train_sampler",
     "build_test_transform",
     "build_transforms",
 ]

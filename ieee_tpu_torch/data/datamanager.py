@@ -1,10 +1,12 @@
 """Image data manager (counterpart of ``ieee_tpu/data/datamanager.py``;
 reference ``torchreid/data/datamanager.py:90-348``).
 
-This slice builds what evaluation needs: the sum-of-sources train set (for
-``num_train_pids``, which sizes the classifiers) and per-target
-query/gallery test loaders yielding uint8 numpy batches. The train loader
-and its samplers come with the training slice; asking for them raises.
+Builds the sum-of-sources train set and its train loader (the train
+sampler, ``drop_last``), and per-target query/gallery test loaders, all
+yielding uint8 numpy batches; the transforms run on the device
+(``transforms.py``). The JAX package's decode and device caches, the
+unlabeled target train loader and multi-host sampler sharding are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from typing import Dict
 
 from .datasets import init_image_dataset
 from .loader import DataLoader
+from .sampler import build_train_sampler
 from .transforms import build_transforms
 
 __all__ = ["ImageDataManager"]
@@ -31,7 +34,7 @@ class ImageDataManager:
                  train_sampler_t="RandomSampler", seed=None, verbose=True,
                  prefetch=2, decode_cache=False, device_cache=False,
                  **dataset_kwargs):
-        del use_gpu, num_cams, num_datasets, train_sampler_t, seed
+        del use_gpu, train_sampler_t
         if decode_cache or device_cache or load_train_targets:
             raise NotImplementedError(
                 "data.decode_cache, data.device_cache and "
@@ -47,10 +50,9 @@ class ImageDataManager:
         self.k_tfm = int(k_tfm)
         self.batch_size_train = batch_size_train
         self.num_instances = num_instances
-        self.train_sampler = train_sampler
         self.transform_tr, self.transform_te = build_transforms(
             height, width, transforms=transforms, norm_mean=norm_mean,
-            norm_std=norm_std)
+            norm_std=norm_std, k_tfm=self.k_tfm)
 
         common = dict(mode="train", combineall=combineall, root=root,
                       split_id=split_id, height=height, width=width,
@@ -67,6 +69,15 @@ class ImageDataManager:
         first = trainset.train[0][0]
         self._num_streams = (len(first) if isinstance(first, (list, tuple))
                              else 1)
+        self.train_loader = DataLoader(
+            trainset,
+            build_train_sampler(trainset.train, train_sampler,
+                                batch_size=batch_size_train,
+                                num_instances=num_instances,
+                                num_cams=num_cams, num_datasets=num_datasets,
+                                seed=seed),
+            batch_size=batch_size_train, drop_last=True, workers=workers,
+            prefetch=prefetch)
 
         if verbose:
             print("=> Loading test (target) dataset")
@@ -108,8 +119,3 @@ class ImageDataManager:
     def num_streams(self):
         """1 = single image per item; >1 = multi-modal image list."""
         return self._num_streams
-
-    @property
-    def train_loader(self):
-        raise NotImplementedError(
-            f"the train loader ({self.train_sampler}) is not ported yet")

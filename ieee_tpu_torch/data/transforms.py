@@ -1,10 +1,18 @@
 """Batch image transforms on the device.
 
-Counterpart of ``ieee_tpu/data/transforms.py``. This slice ports the test
-transform (``transforms.py:398-400``): uint8 (B, H, W, 3) -> /255 ->
-per-channel normalise, in f32 on the batch's device, returned as NCHW in
-channels_last memory (a free view of the NHWC batch). The train transforms
-(flip, crop, patch, colour, erase) come with the training slice.
+Counterpart of ``ieee_tpu/data/transforms.py``: the host only decodes and
+collates uint8 batches; the transforms run on the batch's device. Both
+functions take a uint8 (B, H, W, 3) tensor and return (B, 3, H, W) f32,
+/255 and normalised per channel, as NCHW in channels_last memory (a free
+view of the NHWC batch).
+
+The train transform ports ``random_flip`` (horizontal, p = 0.5 per image).
+Its draws come from a ``torch.Generator`` the caller passes (the engine
+holds one per device, seeded from ``cfg.train.seed``); they are not the
+JAX package's ``jax.random`` draws, so tests feed both the same flip mask.
+The other train transforms of the JAX package (crop, colour jitter, erase,
+patch, PCA lighting) and ``k_tfm`` > 1 are not ported yet: asking for them
+raises when the train transform is called (ROADMAP A.8 and A.11).
 """
 
 from __future__ import annotations
@@ -13,30 +21,77 @@ from typing import Callable, Tuple
 
 import torch
 
-__all__ = ["build_transforms", "build_test_transform"]
+__all__ = ["build_transforms", "build_test_transform", "random_flip",
+           "AVAI_TRANSFORMS"]
 
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
 _IMAGENET_STD = (0.229, 0.224, 0.225)
 
+AVAI_TRANSFORMS = ["random_flip", "random_crop", "color_jitter",
+                   "random_erase", "random_patch", "color_aug"]
+_PORTED = ("random_flip",)
 
-def build_test_transform(norm_mean=None, norm_std=None) -> Callable:
-    """fn(batch uint8 (B, H, W, 3) tensor) -> (B, 3, H, W) f32."""
+
+def _normalizer(norm_mean, norm_std) -> Callable:
     if norm_mean is None or norm_std is None:
         norm_mean, norm_std = _IMAGENET_MEAN, _IMAGENET_STD
     mean = tuple(float(m) for m in norm_mean)
     std = tuple(float(s) for s in norm_std)
 
+    def normalize(x: torch.Tensor) -> torch.Tensor:
+        return (x - x.new_tensor(mean)) / x.new_tensor(std)
+
+    return normalize
+
+
+def random_flip(x: torch.Tensor, flip: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) images; ``flip`` (B,) bool: mirror those images left to
+    right (the JAX ``_random_flip`` for a given draw)."""
+    return torch.where(flip[:, None, None, None], x.flip(2), x)
+
+
+def build_test_transform(norm_mean=None, norm_std=None) -> Callable:
+    """fn(batch uint8 (B, H, W, 3) tensor) -> (B, 3, H, W) f32."""
+    normalize = _normalizer(norm_mean, norm_std)
+
     def test_fn(batch: torch.Tensor) -> torch.Tensor:
-        x = batch.float() / 255.0
-        x = (x - x.new_tensor(mean)) / x.new_tensor(std)
-        return x.permute(0, 3, 1, 2)
+        return normalize(batch.float() / 255.0).permute(0, 3, 1, 2)
 
     return test_fn
 
 
-def build_transforms(height, width, transforms=None, norm_mean=None,
-                     norm_std=None, **kwargs) -> Tuple[None, Callable]:
-    """(train_fn, test_fn) as ``ieee_tpu``'s ``build_transforms``; the train
-    transform is not ported yet, so train_fn is None."""
-    del height, width, transforms, kwargs
-    return None, build_test_transform(norm_mean, norm_std)
+def build_transforms(height, width, transforms="random_flip", norm_mean=None,
+                     norm_std=None, k_tfm: int = 1,
+                     **kwargs) -> Tuple[Callable, Callable]:
+    """(train_fn, test_fn) as ``ieee_tpu``'s ``build_transforms``:
+    ``train_fn(batch, generator)`` draws its augmentation from
+    ``generator`` (on the batch's device); ``test_fn(batch)``."""
+    del height, width, kwargs
+    if transforms is None:
+        transforms = []
+    if isinstance(transforms, str):
+        transforms = [transforms]
+    transforms = [t.lower() for t in transforms]
+    for t in transforms:
+        if t not in AVAI_TRANSFORMS:
+            raise ValueError(f"unknown transform {t}; choose from "
+                             f"{AVAI_TRANSFORMS}")
+    if k_tfm < 1:
+        raise ValueError(f"k_tfm must be >= 1, got {k_tfm}")
+    missing = [t for t in transforms if t not in _PORTED]
+    normalize = _normalizer(norm_mean, norm_std)
+
+    def train_fn(batch: torch.Tensor, generator: torch.Generator):
+        if missing or k_tfm > 1:
+            raise NotImplementedError(
+                f"train transforms {missing} (ROADMAP A.8) and data.k_tfm "
+                f"{k_tfm} > 1 (ROADMAP A.11) are not ported yet; "
+                f"ported: {list(_PORTED)}")
+        x = batch.float() / 255.0
+        if "random_flip" in transforms:
+            flip = torch.rand(x.shape[0], generator=generator,
+                              device=x.device) < 0.5
+            x = random_flip(x, flip)
+        return normalize(x).permute(0, 3, 1, 2)
+
+    return train_fn, build_test_transform(norm_mean, norm_std)

@@ -1,14 +1,15 @@
-"""Multi-modal eval entry point of the port.
+"""Multi-modal train/eval entry point of the port.
 
 Counterpart of ``scripts/main_multimodal.py`` (reference
 ``scripts/mainMultiModal.py:150-241``): parse args -> merge config -> seed ->
-Logger tee -> datamanager -> model -> weights -> engine -> ``engine.run``.
-This slice evaluates (``test.evaluate True``); training comes later.
+Logger tee -> datamanager -> model -> weights -> optimizer and scheduler ->
+engine -> ``engine.run``, which trains (evaluating at ``test.eval_freq``
+and at the last epoch) or, with ``test.evaluate True``, evaluates only.
 
 Usage:
     python -m ieee_tpu_torch.main_multimodal \
         --config-file configs/rgbnt_ieee_part_margin.yaml --root DATA \
-        [--device cuda] [--seed N] test.evaluate True [key value ...]
+        [--device cuda] [--seed N] [key value ...]
 """
 
 from __future__ import annotations
@@ -20,11 +21,18 @@ import time
 
 import torch
 
-from .config import engine_run_kwargs, get_default_config, imagedata_kwargs
+from .config import (
+    engine_run_kwargs,
+    get_default_config,
+    imagedata_kwargs,
+    lr_scheduler_kwargs,
+    optimizer_kwargs,
+)
 from .data import ImageDataManager
 from .engine import build_engine
 from .models import build_model
 from .models.weights import load_reference_checkpoint
+from .optim import build_lr_scheduler, build_optimizer
 from .utils import Logger, set_random_seed
 
 
@@ -45,7 +53,7 @@ def parse_args(argv=None):
 
 def main(argv=None) -> float:
     """Run the CLI; returns the engine's result (rank-1 of the last
-    target)."""
+    target, after training unless ``test.evaluate``)."""
     args = parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -89,18 +97,23 @@ def main(argv=None) -> float:
             extra = dict(interaction=cfg.model.interaction,
                          attention=cfg.model.attention,
                          using_REM=cfg.model.using_REM,
-                         fused_1x1=cfg.cuda.fused_1x1)
+                         fused_1x1=cfg.cuda.fused_1x1,
+                         block_megakernel=cfg.cuda.block_megakernel)
         model = build_model(
             cfg.model.name, num_classes=datamanager.num_train_pids,
             loss=cfg.loss.name, pretrained=cfg.model.pretrained,
-            dtype=cfg.cuda.compute_dtype, seed=cfg.train.seed, **extra)
+            dtype=cfg.cuda.compute_dtype, device=device,
+            seed=cfg.train.seed, **extra)
         if cfg.model.load_weights:
             load_reference_checkpoint(model, cfg.model.load_weights)
             print(f'Loaded reference checkpoint "{cfg.model.load_weights}"')
-        model = model.to(device)
 
+        optimizer = build_optimizer(model, **optimizer_kwargs(cfg))
+        scheduler = build_lr_scheduler(base_lr=cfg.train.lr,
+                                       **lr_scheduler_kwargs(cfg))
         print(f"Building {cfg.loss.name}-engine for {cfg.data.type}-reid")
-        engine = build_engine(cfg, datamanager, model, device=device)
+        engine = build_engine(cfg, datamanager, model, optimizer, scheduler,
+                              device=device)
         if cfg.model.resume:
             raise NotImplementedError("model.resume is not ported yet")
         return engine.run(**engine_run_kwargs(cfg))

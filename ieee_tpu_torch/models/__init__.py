@@ -22,13 +22,14 @@ COMPUTE_DTYPES = {
 
 
 def build_model(name: str, num_classes: int, loss: str = "softmax",
-                pretrained: bool = True, dtype="bfloat16", device="cpu",
+                pretrained: bool = True, dtype="bfloat16", device="cuda",
                 seed: int = 0, **kwargs) -> IEEE3modalPart:
     """Build ``name`` (only ``ieee3modalPart`` in this slice) in eval mode.
     ``dtype`` is the conv/matmul compute dtype (a name or a torch dtype);
     parameters stay float32. Other kwargs go to the model (``parts``,
     ``interaction``, ``attention``, ``using_REM``, ``backbone_layers``,
-    ``fused_1x1``)."""
+    ``fused_1x1``, ``block_megakernel``). ``device`` defaults to the card,
+    as every other entry point of the port; CPU callers pass "cpu"."""
     if name != "ieee3modalPart":
         raise KeyError(f"Unknown model: {name}; this port registers only "
                        "ieee3modalPart so far")

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.kernels.matmul_bn import mm_affine_act
+from ..ops.kernels.matmul_bn import mm_affine_act, mm_bn_act_train
 
 __all__ = ["FastBatchNorm", "ConvBN", "FusedConvBN1x1", "fused_conv_bn_1x1",
            "fuse_worthwhile", "global_avg_pool", "global_max_pool",
@@ -40,15 +40,19 @@ class FastBatchNorm(nn.Module):
     ``momentum * running + (1 - momentum) * batch`` with flax's momentum 0.9
     (torch's 0.1). Keys match ``nn.BatchNorm2d`` (weight, bias, running_mean,
     running_var, num_batches_tracked). Channels are dim 1 of the input.
+    ``clip_var`` clips a negative batch variance (f32 cancellation) to 0, as
+    flax's own ``nn.BatchNorm`` does; the JAX ``FastBatchNorm`` does not.
     """
 
     def __init__(self, num_features: int, momentum: float = 0.9,
-                 eps: float = 1e-5, dtype: torch.dtype = torch.bfloat16):
+                 eps: float = 1e-5, dtype: torch.dtype = torch.bfloat16,
+                 clip_var: bool = False):
         super().__init__()
         self.num_features = num_features
         self.momentum = momentum
         self.eps = eps
         self.dtype = dtype
+        self.clip_var = clip_var
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -63,6 +67,14 @@ class FastBatchNorm(nn.Module):
         inv = torch.rsqrt(var + self.eps) * self.weight
         return inv, self.bias - mean * inv
 
+    @torch.no_grad()
+    def update_running(self, mean, var) -> None:
+        """Fold batch statistics into the running ones (flax's momentum)."""
+        m = self.momentum
+        self.running_mean.mul_(m).add_((1 - m) * mean)
+        self.running_var.mul_(m).add_((1 - m) * var)
+        self.num_batches_tracked.add_(1)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.ndim - 2)
         if self.training:
@@ -70,11 +82,9 @@ class FastBatchNorm(nn.Module):
             xf = x.float()
             mean = xf.mean(dims)
             var = (xf * xf).mean(dims) - mean * mean
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(m).add_((1 - m) * mean)
-                self.running_var.mul_(m).add_((1 - m) * var)
-                self.num_batches_tracked.add_(1)
+            if self.clip_var:
+                var = var.clamp_min(0.0)
+            self.update_running(mean, var)
             inv, shift = self.folded(mean, var)
         else:
             inv, shift = self.folded()
@@ -94,10 +104,15 @@ def conv_bn(x, conv: nn.Conv2d, bn: FastBatchNorm, nonlinear=None,
 
 def fused_conv_bn_1x1(x, weight, bn: FastBatchNorm, relu: bool,
                       residual=None):
-    """Eval 1x1 conv + folded BN [+ ReLU] through the mm_affine kernel.
+    """1x1 conv + BN [+ ReLU] through the fused matmul kernels: in eval
+    (``bn.training`` False) the mm_affine kernel on the folded running
+    statistics; in training ``mm_bn_act_train`` (mm_stats forward, mm_bn_da
+    and mm_bn_dw backward) on the batch statistics, which then update the
+    running ones (momentum ``bn.momentum``, flax's convention).
 
     ``x`` (N, C_in, H, W) is read as its (N*H*W, C_in) rows (a free view
-    when it is channels_last); the result is (N, C_out, H, W) bf16 in
+    when it is channels_last; the backward's gradient comes back through the
+    same view), cast to ``bn.dtype``. The result is (N, C_out, H, W) bf16 in
     channels_last memory. With ``residual`` the output is bn(conv(x)) +
     residual without ReLU; the caller applies it (the JAX package's
     ``FusedConvBN1x1`` contract)."""
@@ -106,10 +121,19 @@ def fused_conv_bn_1x1(x, weight, bn: FastBatchNorm, relu: bool,
     n, cin, h, w = x.shape
     cout = weight.shape[0]
     a = x.permute(0, 2, 3, 1).reshape(-1, cin)
-    inv, shift = bn.folded()
-    y = mm_affine_act(a, weight.reshape(cout, cin).t(), inv, shift, relu)
-    if residual is not None:
-        y = y + residual.permute(0, 2, 3, 1).reshape(-1, cout).to(y.dtype)
+    wt = weight.reshape(cout, cin).t()
+    res = (None if residual is None
+           else residual.permute(0, 2, 3, 1).reshape(-1, cout))
+    if bn.training:
+        res = None if res is None else res.to(bn.dtype)
+        y, mean, var = mm_bn_act_train(a.to(bn.dtype), wt, bn.weight,
+                                       bn.bias, res, relu)
+        bn.update_running(mean, var)
+    else:
+        inv, shift = bn.folded()
+        y = mm_affine_act(a, wt, inv, shift, relu)
+        if res is not None:
+            y = y + res.to(y.dtype)
     return y.view(n, h, w, cout).permute(0, 3, 1, 2)
 
 
@@ -135,19 +159,16 @@ class ConvBN(nn.Module):
 
 
 class FusedConvBN1x1(ConvBN):
-    """Drop-in for a 1x1 stride-1 ``ConvBN`` whose eval forward is the
-    mm_affine kernel (``ieee_tpu/models/common.py:FusedConvBN1x1``, eval
-    branch). Same parameters and keys as ``ConvBN``. Its training forward
-    (the ``mm_bn_act_train`` kernels) comes with the training slice."""
+    """Drop-in for a 1x1 stride-1 ``ConvBN`` backed by the fused matmul
+    kernels (``ieee_tpu/models/common.py:FusedConvBN1x1``): mm_affine in
+    eval, ``mm_bn_act_train`` in training (``fused_conv_bn_1x1``). Same
+    parameters and keys as ``ConvBN``."""
 
     def __init__(self, in_channels: int, features: int, nonlinear=None,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__(in_channels, features, 1, 1, 0, nonlinear, dtype)
 
     def forward(self, x, residual=None):
-        if self.training:
-            raise NotImplementedError(
-                "FusedConvBN1x1 training (mm_bn_act_train) is not ported yet")
         return fused_conv_bn_1x1(x, self.layers[0].weight, self.layers[1],
                                  self.nonlinear == "relu", residual)
 

@@ -5,10 +5,13 @@ Counterpart of ``ieee_tpu/models/resnet.py`` (``Bottleneck``,
 1 keeping a 16x8 map at 256x128 input. Keys are torchvision's (``conv1``,
 ``bn1``, ``layer{s}.{b}.conv{1,2,3}``, ``bn{1,2,3}``, ``downsample.{0,1}``).
 
-With ``fused_1x1`` the eval forward runs each 1x1 conv+BN site that passes
-``fuse_worthwhile`` through the mm_affine kernel; the cb3 + residual contract
-and the strided-downsample subsample follow the JAX package
-(``resnet.py:176-189``).
+With ``fused_1x1`` each 1x1 conv+BN site that passes ``fuse_worthwhile``
+runs through the fused matmul kernels (mm_affine in eval, mm_bn_act_train in
+training: layer4's cb1, cb3 and downsample at full width); the cb3 +
+residual contract and the strided-downsample subsample follow the JAX
+package (``resnet.py:176-189``). ``block_megakernel`` (the JAX package's
+whole-block backward, ``ops/pallas/block_bwd.py``) is not ported yet: a
+training forward that would take it raises.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ class Bottleneck(nn.Module):
 
     def __init__(self, in_planes: int, planes: int, stride: int = 1,
                  downsample: bool = False, dtype=torch.bfloat16,
-                 fused_1x1: bool = False):
+                 fused_1x1: bool = False, block_megakernel: bool = False):
         super().__init__()
         width = planes
         c_out = planes * self.expansion
@@ -55,17 +58,24 @@ class Bottleneck(nn.Module):
         self.fuse_cb3 = (fused_1x1 and fuse_worthwhile(width, c_out)
                          and (not downsample
                               or fuse_worthwhile(in_planes, c_out)))
+        # the JAX Bottleneck takes its whole-block backward for stride-1
+        # blocks without downsample (within its VMEM width gate)
+        self.megakernel = block_megakernel and stride == 1 and not downsample
 
     def forward(self, x):
         dt = self.dtype
-        fused = not self.training
+        if self.training and self.megakernel:
+            raise NotImplementedError(
+                "cuda.block_megakernel (the whole-block backward kernels of "
+                "ieee_tpu/ops/pallas/block_bwd.py) is not ported yet: "
+                "ROADMAP B.4")
         identity = x
-        if fused and self.fuse_cb1:
+        if self.fuse_cb1:
             out = fused_conv_bn_1x1(x, self.conv1.weight, self.bn1, True)
         else:
             out = conv_bn(x, self.conv1, self.bn1, "relu", dt)
         out = conv_bn(out, self.conv2, self.bn2, "relu", dt)
-        if fused and self.fuse_cb3:
+        if self.fuse_cb3:
             if self.downsample is not None:
                 # 1x1 stride-s conv == subsample rows/cols, then stride-1 1x1
                 xs = (x[:, :, ::self.stride, ::self.stride]
@@ -88,7 +98,7 @@ class ResNetTrunk(nn.Module):
 
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3),
                  last_stride: int = 2, dtype=torch.bfloat16,
-                 fused_1x1: bool = False):
+                 fused_1x1: bool = False, block_megakernel: bool = False):
         super().__init__()
         self.dtype = dtype
         self.conv1 = _conv(3, 64, 7, 2, 3)
@@ -103,7 +113,7 @@ class ResNetTrunk(nn.Module):
                 down = b == 0 and (st != 1
                                    or in_planes != planes * Bottleneck.expansion)
                 blocks.append(Bottleneck(in_planes, planes, st, down, dtype,
-                                         fused_1x1))
+                                         fused_1x1, block_megakernel))
                 in_planes = planes * Bottleneck.expansion
             self.add_module(f"layer{s}", nn.Sequential(*blocks))
         self.feature_dim = in_planes

@@ -41,6 +41,9 @@ _SIGNATURES = {
     "ieee_distmat_f32": [_P, _P, _P, _I, _I, _I, _P],
     "ieee_mm_affine_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ieee_partpool": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "ieee_mm_stats_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "ieee_mm_bn_da_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ieee_mm_bn_dw_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

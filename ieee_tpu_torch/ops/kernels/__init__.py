@@ -11,7 +11,11 @@ from __future__ import annotations
 
 from collections import Counter
 
-__all__ = ["LAUNCHES", "reset_launch_counts", "launch_counts"]
+__all__ = ["KERNEL_NAMES", "LAUNCHES", "reset_launch_counts", "launch_counts"]
+
+#: every kernel of the port, in the order of PERF.md's table
+KERNEL_NAMES = ("distmat", "partpool", "mm_affine", "mm_stats", "mm_bn_da",
+                "mm_bn_dw")
 
 #: kernel name -> number of launches since the last reset
 LAUNCHES: Counter = Counter()
@@ -22,4 +26,4 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> dict:
-    return {k: LAUNCHES[k] for k in ("distmat", "partpool", "mm_affine")}
+    return {k: LAUNCHES[k] for k in KERNEL_NAMES}

@@ -8,11 +8,16 @@ import sys
 import pytest
 
 from ieee_tpu.config import get_default_config as jax_default_config
+from ieee_tpu.config import engine_run_kwargs as jax_engine_run_kwargs
 from ieee_tpu.config import imagedata_kwargs as jax_imagedata_kwargs
+from ieee_tpu.config import lr_scheduler_kwargs as jax_lr_scheduler_kwargs
+from ieee_tpu.config import optimizer_kwargs as jax_optimizer_kwargs
 from ieee_tpu_torch.config import (
     engine_run_kwargs,
     get_default_config,
     imagedata_kwargs,
+    lr_scheduler_kwargs,
+    optimizer_kwargs,
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -49,6 +54,9 @@ def test_cuda_section_defaults_and_typed_overrides():
 def test_kwargs_adapters_match():
     ours, theirs = _loaded(get_default_config), _loaded(jax_default_config)
     assert imagedata_kwargs(ours) == jax_imagedata_kwargs(theirs)
+    assert optimizer_kwargs(ours) == jax_optimizer_kwargs(theirs)
+    assert lr_scheduler_kwargs(ours) == jax_lr_scheduler_kwargs(theirs)
+    assert engine_run_kwargs(ours) == jax_engine_run_kwargs(theirs)
     run = engine_run_kwargs(ours)
     assert run["test_only"] is False and run["ranks"] == [1, 5, 10]
 
@@ -57,7 +65,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     code = ("import sys, ieee_tpu_torch.engine, ieee_tpu_torch.main_multimodal,"
             " ieee_tpu_torch.models.fast_eval, ieee_tpu_torch.ops.kernels."
             "partpool, ieee_tpu_torch.ops.kernels.matmul_bn, "
-            "ieee_tpu_torch.ops.kernels.distmat; "
+            "ieee_tpu_torch.ops.kernels.distmat, ieee_tpu_torch.losses, "
+            "ieee_tpu_torch.optim, ieee_tpu_torch.data.sampler, "
+            "ieee_tpu_torch.engine.image.margin, ieee_tpu_torch.utils; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'ieee_tpu.')) or m == 'ieee_tpu']; "
             "assert not bad, bad")

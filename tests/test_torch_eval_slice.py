@@ -82,8 +82,10 @@ def test_datamanager_matches_jax(managers):
             for x, y in zip(a["img"], b["img"]):
                 assert x.dtype == np.uint8
                 np.testing.assert_array_equal(x, y)
-    with pytest.raises(NotImplementedError):
-        dm.train_loader
+    # the train loader: the same sampler draw (RandomSampler, seed 0) and,
+    # with drop_last, no batch of 32 from 12 items
+    assert list(dm.train_loader.sampler) == list(jdm.train_loader.sampler)
+    assert len(dm.train_loader) == len(jdm.train_loader) == 0
 
 
 def test_threaded_loader_delivers_the_same_batches_in_order(managers):
@@ -117,7 +119,7 @@ def test_engine_eval_matches_jax_pipeline(managers, jax_reference):
     ref = jax_reference
     model = build_model("ieee3modalPart", dm.num_train_pids, "margin",
                         pretrained=False, dtype="float32",
-                        backbone_layers=LAYERS)
+                        backbone_layers=LAYERS, device="cpu")
     load_jax_variables(model, ref["params"], ref["stats"])
     engine = Engine(dm, model, device="cpu", fused_eval=False)
     loaders = dm.test_loader["synthetic_mm"]
@@ -161,8 +163,9 @@ def test_cli_refuses_what_this_slice_does_not_run(tmp_path):
             "data.targets", "['synthetic_mm']",
             "data.height", "32", "data.width", "16",
             "data.save_dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError):  # training
-        main_multimodal.main(base + ["test.evaluate", "False"])
+    with pytest.raises(NotImplementedError, match="A.11"):  # fixbase
+        main_multimodal.main(base + ["train.fixbase_epoch", "1",
+                                     "train.max_epoch", "1"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main_multimodal.main(["--device", "cuda"])

@@ -136,8 +136,9 @@ def test_wrappers_take_the_plain_version_on_cpu_and_count_nothing():
     x = torch.tensor(_np((2, 4, 2, 16), 14))
     torch.testing.assert_close(fused_partpool_project(x, w, v, v),
                                fused_partpool_project_plain(x, w, v, v))
-    assert kernels.launch_counts() == {"distmat": 0, "partpool": 0,
-                                       "mm_affine": 0}
+    assert kernels.launch_counts() == {
+        "distmat": 0, "partpool": 0, "mm_affine": 0, "mm_stats": 0,
+        "mm_bn_da": 0, "mm_bn_dw": 0}
 
 
 def test_wrappers_check_shapes_and_dtypes():
