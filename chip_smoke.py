@@ -17,7 +17,10 @@ Phases (any failure raises and exits non-zero):
    fused sites of one train step at batch 128 (layer4, CIM, reduce), the
    CIM site at batch 8, the reduce site at N = 8 and 48, and a ragged N;
    then the whole ``mm_bn_act_train`` op, forward and backward, against its
-   plain version.
+   plain version. The four block kernels run at the three stages the
+   block path takes in a batch-128 step (layer1-3: 6, 9 and 15 blocks per
+   step over the three trunks), at layer4's width 512 and at a ragged
+   batch; then the whole ``bottleneck_train`` op against ``plain=True``.
 3. The eval path through the CLI, ``ieee_tpu_torch.main_multimodal``, with
    ``test.evaluate True`` on ``synthetic_mm`` at 256x128, batch 100,
    random weights: the launch counts are set to 0 just before and read
@@ -29,15 +32,19 @@ Phases (any failure raises and exits non-zero):
    (3368 x 15913 x 2304).
 6. The training path through the CLI: the headline config trains one epoch
    on ``synthetic_mm`` at 256x128, batch 8 (the config's), random weights,
-   then evaluates. Counts set to 0 just before, read just after: all six
-   kernels must launch, the train kernels a multiple of 33 times, and the
-   epoch's loss must be finite.
+   then evaluates. Counts set to 0 just before, read just after: the six
+   kernels of that path must launch, the train kernels a multiple of 33
+   times, no block kernel, and the epoch's loss must be finite. Then the
+   same with ``cuda.block_megakernel True``: the block kernels 30 times
+   per step, the train kernels 33.
 7. The engine's train step at ``bench.py``'s protocol (batch 128, 171 pids,
    one fixed batch on the card, 3 warm-up and 20 timed steps), fused
-   (kernels, 33 launches of each train kernel per step) and plain: train
-   triplets/s, peak device memory and a ``torch.profiler`` summary by
-   kernel; and the first step of each, from the same weights and batch,
-   must agree (loss, and every gradient tensor's cosine).
+   (kernels, 33 launches of each train kernel per step), fused+block (the
+   same with ``block_megakernel``: also 30 launches of each block kernel)
+   and plain: train triplets/s, peak device memory and a
+   ``torch.profiler`` summary by kernel; and the first step of each kernel
+   path, from the same weights and batch, must agree with the plain one
+   (loss, and every gradient tensor's cosine).
 
 The line before the last is the JSON list of kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -69,8 +76,19 @@ KERNELS = {
                  "ieee_tpu/ops/pallas/matmul_bn.py:180"),
     "mm_bn_dw": ("ieee_tpu_torch/csrc/mm_bn_train.cu",
                  "ieee_tpu/ops/pallas/matmul_bn.py:223"),
+    "reduce3": ("ieee_tpu_torch/csrc/block_bwd.cu",
+                "ieee_tpu/ops/pallas/block_bwd.py:316"),
+    "bn3_apply": ("ieee_tpu_torch/csrc/block_bwd.cu",
+                  "ieee_tpu/ops/pallas/block_bwd.py:332"),
+    "conv2_bwd": ("ieee_tpu_torch/csrc/block_bwd.cu",
+                  "ieee_tpu/ops/pallas/block_bwd.py:351"),
+    "bn1_apply": ("ieee_tpu_torch/csrc/block_bwd.cu",
+                  "ieee_tpu/ops/pallas/block_bwd.py:371"),
 }
 TRAIN_KERNELS = ("mm_stats", "mm_bn_da", "mm_bn_dw")
+BLOCK_KERNELS = ("reduce3", "bn3_apply", "conv2_bwd", "bn1_apply")
+# blocks on the block path per train step (10 per trunk, 3 trunks)
+BLOCKS_PER_STEP = 30
 # least cosine between a fused and a plain step's gradient tensor (phase
 # 7): bf16 rounding noise in the early trunk layers' gradients at batch 128
 # (measured on an H100: 0.84 fused vs plain; each bf16 path against the f32
@@ -96,6 +114,14 @@ TRAIN_SITES = (
 # batch 8, and a ragged N
 TRAIN_EXTRA = ((1024, 2048, 2048, True, 0), (8, 2048, 768, True, 0),
                (48, 2048, 768, True, 0), (1037, 1024, 2048, False, 0))
+# the block path's stages in one train step at batch 128 (256x128 input):
+# (B, H, W, C, cm, blocks per step over the three trunks)
+BLOCK_SITES = ((128, 64, 32, 256, 64, 6),    # layer1.1-2
+               (128, 32, 16, 512, 128, 9),   # layer2.1-3
+               (128, 16, 8, 1024, 256, 15))  # layer3.1-5
+# checked but outside the per-step sums: layer4's width 512 (not selected;
+# the kernels have no width limit) and a ragged batch
+BLOCK_EXTRA = ((128, 16, 8, 2048, 512, 0), (3, 16, 8, 256, 64, 0))
 
 
 def die(msg: str, code: int = 2):
@@ -324,6 +350,8 @@ def check_train_kernels(record):
                         + 4.0 * k * c, "bf16"), weight=sites, iters=iters)
         del a, w, w16, d, y, dy, got, want, tol
     check_train_op()
+    check_block_kernels(record)
+    check_block_op()
 
 
 def check_train_op():
@@ -384,6 +412,219 @@ def check_train_op():
               + f" (mean/var abs tol {vtol:.2e}, rest relative 2^-8)")
 
 
+def check_block_kernels(record):
+    """Phase 2, block kernels: reduce3, bn3_apply, conv2_bwd and bn1_apply
+    at the block path's three stages of a batch-128 step, at width 512 and
+    at a ragged batch, each launched twice (bit-identical: no float
+    atomics). Tolerances: d3 exact (a mask and a copy); bf16 outputs one
+    bf16 step of the value plus 1e-3 of the map's rms, where f32 sums taken
+    in another order round to neighbouring values near zero; the f32
+    channel sums and dW 1e-5 of the sum of |terms|. Library calls: none for
+    reduce3 (no single PyTorch call masks and sums); the two bf16
+    torch.matmul products (dW, and the input gradient) for bn3_apply and
+    bn1_apply; cuDNN's conv2d_input and conv2d_weight for conv2_bwd. None
+    of them recomputes the BN backward or the masks."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.grad import conv2d_input, conv2d_weight
+
+    from ieee_tpu_torch.ops.kernels import block_bwd as bb
+
+    bf16 = torch.bfloat16
+    rows_of = bb._rows
+
+    def twice(name, fn):
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"{name}: two runs differ")
+        return a
+
+    def bf16_tol(want):
+        return 2 ** -7 * want.abs() + 1e-3 * want.pow(2).mean().sqrt()
+
+    def sums_close(name, shape, what, got, want, terms):
+        err = (got - want).abs()
+        if not bool((err <= 1e-5 * terms + 1e-30).all()):
+            raise AssertionError(f"{name} {shape} {what}: {err.max().item()}")
+
+    def taps(t):  # the nine shifted (N, C) views of a (B, H, W, C) map
+        b, h, w, c = t.shape
+        p = F.pad(t, (0, 0, 1, 1, 1, 1))
+        return [p[:, ky:ky + h, kx:kx + w].reshape(-1, c)
+                for ky in range(3) for kx in range(3)]
+
+    for b, h, w, c, cm, blocks in BLOCK_SITES + BLOCK_EXTRA:
+        n = b * h * w
+        iters = 10 if n >= 16384 else 20
+        shape = [b, h, w, c, cm]
+
+        def amap(ch, seed):
+            return randn((b, h, w, ch), seed).to(bf16)
+
+        def vrows(ch, seed, k):
+            return torch.stack([randn((ch,), seed).abs() + 0.5,
+                                0.5 * randn((ch,), seed + 1),
+                                0.1 * randn((ch,), seed + 2),
+                                randn((ch,), seed + 3).abs() + 0.5,
+                                0.1 * randn((ch,), seed + 4)][:k])
+
+        dy, y, a3, x, d3 = (amap(c, s) for s in (40, 41, 42, 43, 44))
+        a2, a1, d2, d1 = (amap(cm, s) for s in (45, 46, 47, 48))
+        v3, v2f, v2 = vrows(c, 50, 5), vrows(cm, 55, 4), vrows(cm, 60, 5)
+        v1f, v1 = vrows(cm, 65, 4), vrows(cm, 70, 5)
+        w1 = randn((c, cm), 75, c ** -0.5)
+        w2 = randn((3, 3, cm, cm), 76, (9 * cm) ** -0.5)
+        w3 = randn((cm, c), 77, cm ** -0.5)
+        w1b, w2b, w3b = w1.to(bf16), w2.to(bf16), w3.to(bf16)
+
+        # reduce3: no products; ~7 f32 operations per element
+        mean, rstd = v3[1], v3[2]
+        args = (dy, y, a3, mean, rstd)
+        got = twice("reduce3", lambda: bb.reduce3(*args))
+        want = bb.reduce3_plain(*args)
+        g = rows_of(want[0]).float().abs()
+        xh = bb._xhat(rows_of(a3).float(), mean, rstd).abs()
+        sums_close("reduce3", shape, "S3", got[1], want[1],
+                   torch.stack([g.sum(0), (g * xh).sum(0)]))
+        record("reduce3", shape, got[0].float(), want[0].float(), 0.0,
+               lambda: bb.reduce3(*args), lambda: bb.reduce3_plain(*args),
+               None, bound_ms(7.0 * n * c, 8.0 * n * c + 16.0 * c, "f32"),
+               weight=blocks, iters=iters)
+        del g, xh
+
+        # bn3_apply: dW3 = h2^T da3 and dh2 = da3 W3^T
+        args = (d3, a3, a2, w3, v3, v2f)
+        got = twice("bn3_apply", lambda: bb.bn3_apply(*args))
+        want = bb.bn3_apply_plain(*args)
+        da3 = bb._bn_bwd(rows_of(d3), rows_of(a3), v3)
+        a2f = rows_of(a2).float()
+        h2 = bb._relu_bn(a2f, v2f)
+        prod = (da3.float().abs() @ w3b.float().abs().t()) * (h2 > 0)
+        xh = bb._xhat(a2f, v2f[2], v2f[3]).abs()
+        sums_close("bn3_apply", shape, "S2", got[1], want[1],
+                   torch.stack([prod.sum(0), (prod * xh).sum(0)]))
+        sums_close("bn3_apply", shape, "dW3", got[2], want[2],
+                   h2.t() @ da3.float().abs())
+        h2b = h2.to(bf16)
+        want_d2 = want[0].float()
+        record("bn3_apply", shape, got[0].float(), want_d2,
+               bf16_tol(want_d2), lambda: bb.bn3_apply(*args),
+               lambda: bb.bn3_apply_plain(*args),
+               lambda: (torch.matmul(h2b.t(), da3),
+                        torch.matmul(da3, w3b.t())),
+               bound_ms(4.0 * n * c * cm, 4.0 * n * c + 4.0 * n * cm
+                        + 6.0 * cm * c + 20.0 * c + 24.0 * cm, "bf16"),
+               weight=blocks, iters=iters)
+        del da3, a2f, h2, h2b, prod, xh, want_d2
+
+        # conv2_bwd: the 3x3 input and weight gradients of da2
+        args = (d2, a2, a1, w2, v2, v1f)
+        got = twice("conv2_bwd", lambda: bb.conv2_bwd(*args))
+        want = bb.conv2_bwd_plain(*args)
+        da2 = bb._bn_bwd(rows_of(d2), rows_of(a2), v2)
+        a1f = rows_of(a1).float()
+        h1 = bb._relu_bn(a1f, v1f)
+        w2a = w2b.float().abs()
+        da_taps = taps(da2.float().abs().view(b, h, w, cm))
+        # the input gradient's tap (ky, kx) reads da2 at (1 - ky, 1 - kx)
+        prod = sum(da_taps[8 - t] @ w2a[t // 3, t % 3].t()
+                   for t in range(9)) * (h1 > 0)
+        del da_taps
+        xh = bb._xhat(a1f, v1f[2], v1f[3]).abs()
+        sums_close("conv2_bwd", shape, "S1", got[1], want[1],
+                   torch.stack([prod.sum(0), (prod * xh).sum(0)]))
+        terms = torch.stack([t.t() @ da2.float().abs()
+                             for t in taps(h1.view(b, h, w, cm))])
+        sums_close("conv2_bwd", shape, "dW2", got[2], want[2],
+                   terms.view(3, 3, cm, cm))
+        del prod, xh, terms, a1f
+        da2n = da2.view(b, h, w, cm).permute(0, 3, 1, 2)
+        h1n = h1.to(bf16).view(b, h, w, cm).permute(0, 3, 1, 2)
+        w2o = w2b.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        want_d1 = want[0].float()
+        record("conv2_bwd", shape, got[0].float(), want_d1,
+               bf16_tol(want_d1), lambda: bb.conv2_bwd(*args),
+               lambda: bb.conv2_bwd_plain(*args),
+               lambda: (conv2d_input(h1n.shape, w2o, da2n, padding=1),
+                        conv2d_weight(h1n, w2o.shape, da2n, padding=1)),
+               bound_ms(36.0 * n * cm * cm, 8.0 * n * cm + 54.0 * cm * cm
+                        + 44.0 * cm, "bf16"), weight=blocks, iters=iters)
+        del da2, h1, da2n, h1n, w2o, want_d1
+
+        # bn1_apply: dW1 = x^T da1 and dx = da1 W1^T + d3
+        args = (d1, a1, x, d3, w1, v1)
+        got = twice("bn1_apply", lambda: bb.bn1_apply(*args))
+        want = bb.bn1_apply_plain(*args)
+        da1 = bb._bn_bwd(rows_of(d1), rows_of(a1), v1)
+        xr = rows_of(x)
+        sums_close("bn1_apply", shape, "dW1", got[1], want[1],
+                   xr.float().abs().t() @ da1.float().abs())
+        want_dx = want[0].float()
+        record("bn1_apply", shape, got[0].float(), want_dx,
+               bf16_tol(want_dx), lambda: bb.bn1_apply(*args),
+               lambda: bb.bn1_apply_plain(*args),
+               lambda: (torch.matmul(xr.t(), da1),
+                        torch.matmul(da1, w1b.t())),
+               bound_ms(4.0 * n * c * cm, 6.0 * n * c + 4.0 * n * cm
+                        + 6.0 * c * cm + 20.0 * cm, "bf16"),
+               weight=blocks, iters=iters)
+        del got, want, da1, xr, want_dx
+        torch.cuda.empty_cache()
+
+
+def check_block_op():
+    """Phase 2, the whole op: bottleneck_train forward and backward through
+    the block kernels against ``plain=True`` on the same inputs. The forward
+    is the same code (y and the statistics equal); in the backward the sums
+    S3, S2, S1 differ in order and d2, d1, dx by a bf16 step here and there,
+    which moves the next BN backward a little: all ten gradients to a
+    relative Frobenius error of 2^-8, one bf16 step."""
+    import torch
+
+    from ieee_tpu_torch.ops import kernels
+    from ieee_tpu_torch.ops.kernels.block_bwd import bottleneck_train
+
+    for b, h, w, c, cm in ((128, 64, 32, 256, 64), (128, 16, 8, 1024, 256),
+                           (3, 7, 5, 64, 16)):
+        x = randn((b, h, w, c), 80).to(torch.bfloat16)
+        params = [randn((1, 1, c, cm), 81, c ** -0.5),
+                  1 + 0.1 * randn((cm,), 82), 0.1 * randn((cm,), 83),
+                  randn((3, 3, cm, cm), 84, (9 * cm) ** -0.5),
+                  1 + 0.1 * randn((cm,), 85), 0.1 * randn((cm,), 86),
+                  randn((1, 1, cm, c), 87, cm ** -0.5),
+                  1 + 0.1 * randn((c,), 88), 0.1 * randn((c,), 89)]
+        ct = randn((b, h, w, c), 90).to(torch.bfloat16)
+        outs = {}
+        for plain in (False, True):
+            kernels.reset_launch_counts()
+            leaves = [x.clone().requires_grad_()] + [
+                p.clone().requires_grad_() for p in params]
+            y, stats = bottleneck_train(*leaves, plain=plain)
+            y.backward(ct)
+            torch.cuda.synchronize()
+            launched = [kernels.LAUNCHES[k] for k in BLOCK_KERNELS]
+            if launched != ([0] * 4 if plain else [1] * 4):
+                raise AssertionError(f"op launches {launched} "
+                                     f"(plain={plain})")
+            outs[plain] = (y, stats, [t.grad.float() for t in leaves])
+        (y, st, g), (y_p, st_p, g_p) = outs[False], outs[True]
+        if not (torch.equal(y, y_p)
+                and all(torch.equal(a, b_) for a, b_ in zip(st, st_p))):
+            raise AssertionError(f"op forward {[b, h, w, c, cm]} differs")
+        errs = {}
+        for name, a, b_ in zip("dx dk1 ds1 db1 dk2 ds2 db2 dk3 ds3 db3"
+                               .split(), g, g_p):
+            errs[name] = ((a - b_).norm() / b_.norm()).item()
+            if errs[name] > 2 ** -8:
+                raise AssertionError(f"op {name} {[b, h, w, c, cm]}: "
+                                     f"relative {errs[name]}")
+        print(f"op bottleneck_train {[b, h, w, c, cm]}: "
+              + " ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + " (relative 2^-8)")
+
+
 def main_path():
     """Phase 3: the CLI eval; returns the launch counts of its run."""
     from ieee_tpu_torch import main_multimodal
@@ -407,7 +648,7 @@ def main_path():
     if missing:
         raise AssertionError(f"kernels not launched on the eval path: "
                              f"{missing}")
-    if any(counts[k] for k in TRAIN_KERNELS):
+    if any(counts[k] for k in TRAIN_KERNELS + BLOCK_KERNELS):
         raise AssertionError(f"train kernels launched in eval: {counts}")
     return counts
 
@@ -489,15 +730,17 @@ def distmat_scale(results):
          "weight": 0})
 
 
-def train_path():
+def train_path(block: bool = False):
     """Phase 6: the CLI trains one epoch of the headline config, then
-    evaluates; returns the launch counts of its run."""
+    evaluates; with ``block``, with ``cuda.block_megakernel True``. Returns
+    the launch counts of its run."""
     import torch
 
     from ieee_tpu_torch import main_multimodal
     from ieee_tpu_torch.ops import kernels
 
-    save_dir = os.path.join(ROOT, "log", "chip_smoke_train")
+    save_dir = os.path.join(ROOT, "log", "chip_smoke_train"
+                            + ("_block" if block else ""))
     metrics = os.path.join(save_dir, "metrics.jsonl")
     if os.path.exists(metrics):
         os.remove(metrics)
@@ -507,7 +750,7 @@ def train_path():
             "data.targets", "['synthetic_mm']",
             "data.height", "256", "data.width", "128",
             "data.save_dir", save_dir, "train.max_epoch", "1",
-            "train.print_freq", "4"]
+            "train.print_freq", "4", "cuda.block_megakernel", str(block)]
     kernels.reset_launch_counts()
     rank1 = main_multimodal.main(argv)
     torch.cuda.synchronize()
@@ -516,20 +759,25 @@ def train_path():
         records = [json.loads(line) for line in f]
     epoch = next(r for r in records if r["kind"] == "train_epoch")
     steps = counts["mm_stats"] // 33
-    print(f"train path: 1 epoch, loss {epoch['loss']:.4f}, rank1 "
-          f"{rank1:.4f}, launches {counts} ({steps} steps of 33 per train "
-          f"kernel)")
+    print(f"train path{' (block)' if block else ''}: 1 epoch, loss "
+          f"{epoch['loss']:.4f}, rank1 {rank1:.4f}, launches {counts} "
+          f"({steps} steps of 33 per train kernel"
+          + (f", {BLOCKS_PER_STEP} per block kernel)" if block else ")"))
     if not math.isfinite(epoch["loss"]):
         raise AssertionError(f"train loss not finite: {epoch['loss']}")
     if not 0.0 <= rank1 <= 1.0:
         raise AssertionError(f"rank-1 {rank1} outside [0, 1]")
-    missing = [k for k, v in counts.items() if v <= 0]
+    missing = [k for k, v in counts.items()
+               if v <= 0 and (block or k not in BLOCK_KERNELS)]
     if missing:
         raise AssertionError(f"kernels not launched on the train path: "
                              f"{missing}")
     train = {counts[k] for k in TRAIN_KERNELS}
     if len(train) != 1 or counts["mm_stats"] % 33:
         raise AssertionError(f"train kernels not 33 per step: {counts}")
+    want = steps * BLOCKS_PER_STEP if block else 0
+    if any(counts[k] != want for k in BLOCK_KERNELS):
+        raise AssertionError(f"block kernels not {want}: {counts}")
     return counts
 
 
@@ -556,8 +804,9 @@ def profile_steps(step, n: int = 2):
     return dev / n, dev / wall_ms, top
 
 
-def engine_train(counts):
-    """Phase 7: the train step at bench.py's protocol, fused and plain."""
+def engine_train():
+    """Phase 7: the train step at bench.py's protocol: fused, fused+block
+    and plain."""
     import torch
 
     from ieee_tpu_torch.data import ImageDataManager
@@ -574,14 +823,16 @@ def engine_train(counts):
                           verbose=False, seed=0)
     data = next(iter(dm.train_loader))
     first, rates = {}, {}
-    # fused and plain in bf16 (timed), then one plain step in f32 as the
-    # yardstick of bf16 rounding noise in the gradients
-    for name, fused, dtype in (("fused", True, "bfloat16"),
-                               ("plain", False, "bfloat16"),
-                               ("f32", False, "float32")):
+    # fused, fused+block and plain in bf16 (timed), then one plain step in
+    # f32 as the yardstick of bf16 rounding noise in the gradients
+    for name, fused, block, dtype in (
+            ("fused", True, False, "bfloat16"),
+            ("fused+block", True, True, "bfloat16"),
+            ("plain", False, False, "bfloat16"),
+            ("f32", False, False, "float32")):
         model = build_model("ieee3modalPart", num_pids, "margin",
                             pretrained=False, dtype=dtype, seed=1,
-                            fused_1x1=fused)
+                            fused_1x1=fused, block_megakernel=block)
         opt = build_optimizer(model, optim="sgd", lr=0.001, momentum=0.9,
                               weight_decay=5e-4)
         sched = build_lr_scheduler("multi_step", stepsize=[20, 40],
@@ -593,11 +844,13 @@ def engine_train(counts):
         kernels.reset_launch_counts()
         m = eng.train_step(imgs, pids)
         torch.cuda.synchronize()
-        launched = {k: kernels.LAUNCHES[k] for k in TRAIN_KERNELS}
-        want = 33 if fused else 0
-        if any(v != want for v in launched.values()):
+        launched = {k: kernels.LAUNCHES[k]
+                    for k in TRAIN_KERNELS + BLOCK_KERNELS}
+        want = {k: (33 if fused else 0) if k in TRAIN_KERNELS
+                else (BLOCKS_PER_STEP if block else 0) for k in launched}
+        if launched != want:
             raise AssertionError(f"{name} step launched {launched}, want "
-                                 f"{want} each")
+                                 f"{want}")
         first[name] = (m["loss"].item(),
                        {n: p.grad.detach().float().clone()
                         for n, p in model.named_parameters()})
@@ -642,20 +895,22 @@ def engine_train(counts):
             out[n] = ((f * g).sum() / (f.norm() * g.norm())).item()
         return sorted(out.items(), key=lambda kv: kv[1])
 
-    lf, lp, l32 = (first[k][0] for k in ("fused", "plain", "f32"))
-    rel = abs(lf - lp) / abs(lp)
-    for a, b in (("fused", "f32"), ("plain", "f32")):
-        cs = cosines(a, b)
-        print(f"engine train {a} vs {b}, first step: loss relative "
+    lp, l32 = first["plain"][0], first["f32"][0]
+    for a in ("fused", "fused+block", "plain"):
+        cs = cosines(a, "f32")
+        print(f"engine train {a} vs f32, first step: loss relative "
               f"{abs(first[a][0] - l32) / abs(l32):.2e}; gradient cosine "
               f"min {cs[0][1]:.6f}, median {cs[len(cs) // 2][1]:.6f}")
-    cs = cosines("fused", "plain")
-    print(f"engine train fused vs plain, first step: loss {lf:.6f} vs "
-          f"{lp:.6f} (relative {rel:.2e}, tol 1e-2); gradient cosine min "
-          f"{cs[0][1]:.6f}, median {cs[len(cs) // 2][1]:.6f} over "
-          f"{len(cs)} tensors (bound {GRAD_COS}); lowest {cs[:3]}")
-    if rel > 1e-2 or cs[0][1] < GRAD_COS:
-        raise AssertionError("fused and plain train steps disagree")
+    for a in ("fused", "fused+block"):
+        lf = first[a][0]
+        rel = abs(lf - lp) / abs(lp)
+        cs = cosines(a, "plain")
+        print(f"engine train {a} vs plain, first step: loss {lf:.6f} vs "
+              f"{lp:.6f} (relative {rel:.2e}, tol 1e-2); gradient cosine "
+              f"min {cs[0][1]:.6f}, median {cs[len(cs) // 2][1]:.6f} over "
+              f"{len(cs)} tensors (bound {GRAD_COS}); lowest {cs[:3]}")
+        if rel > 1e-2 or cs[0][1] < GRAD_COS:
+            raise AssertionError(f"{a} and plain train steps disagree")
 
 
 def main():
@@ -704,15 +959,20 @@ def main():
     counts = train_path()
     print(f"phase train path: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    engine_train(counts)
+    block_counts = train_path(block=True)
+    print(f"phase train path, block: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    engine_train()
     print(f"phase engine train: {time.perf_counter() - t0:.1f} s")
 
     # each kernel's reported numbers: the weighted sum of its cases, where
     # the weight is how often the case runs in the reported unit: distmat
     # at 836x836 (RGBNT201 test), partpool at the head's f32 call,
-    # mm_affine over the seven layer4 calls of one trunk at batch 100, and
-    # each train kernel over the 33 fused sites of one train step at batch
-    # 128. launches: the train path's run (phase 6), which drives all six
+    # mm_affine over the seven layer4 calls of one trunk at batch 100, each
+    # train kernel over the 33 fused sites of one train step at batch 128,
+    # and each block kernel over the 30 blocks of one train step at batch
+    # 128. launches: the train path's runs (phase 6), the default one for
+    # the first six kernels and the block one for the block kernels
     line = {"kernels": []}
     for name, (source, replaces) in KERNELS.items():
         cases = [c for c in results[name]["cases"] if c["weight"]]
@@ -726,7 +986,9 @@ def main():
                      if c["bound_by"] == "operations")
         line["kernels"].append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": counts[name],
+            "replaces": replaces,
+            "launches": (block_counts if name in BLOCK_KERNELS
+                         else counts)[name],
             "max_abs_err": results[name]["max_abs_err"],
             "ms": total("ms"), "plain_ms": total("plain_ms"),
             "bound_ms": total("bound_ms"),

@@ -152,8 +152,12 @@ def get_default_config() -> ConfigNode:
     # IEEE eval through the folded-BN head with the partpool CUDA kernel
     # (models/fast_eval.py); on by default for the same reason
     cfg.cuda.fused_eval = True
-    # the JAX package's whole-block backward (cfg.tpu.block_megakernel, off
-    # unless asked for); not ported yet: a training forward with it raises
+    # the JAX package's whole-block backward (cfg.tpu.block_megakernel): in
+    # training, every stride-1 bottleneck without downsample of width <= 256
+    # (layer1-3, 10 blocks per trunk) runs as bottleneck_train, whose
+    # backward is the reduce3, bn3_apply, conv2_bwd and bn1_apply CUDA
+    # kernels (ops/kernels/block_bwd.py). Off by default, as in the JAX
+    # package, until measured times say otherwise
     cfg.cuda.block_megakernel = False
     cfg.cuda.prefetch = 2  # host loader prefetch depth (data/loader.py)
 

@@ -44,35 +44,9 @@
 // Rows past N and columns past C are masked, so any N runs (the reduce site
 // has N = 8 at batch 8); K and C must be multiples of 8 (the wrapper checks).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-
-#include <cstdint>
+#include "wmma_tile.cuh"
 
 namespace {
-
-using namespace nvcuda;
-
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 32;
-constexpr int PAD = 8;
-constexpr int THREADS = 256;
-constexpr int WARPS_N = 4;   // warp grid 2 (rows) x 4 (cols)
-constexpr int WM = 64;       // rows per warp
-constexpr int WN = 32;       // cols per warp
-constexpr int FM = WM / 16;  // 4 fragments down
-constexpr int FN = WN / 16;  // 2 fragments across
-
-using frag_acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-__device__ __forceinline__ void load_vec8(const float* p, float v[8]) {
-  const float4 lo = *reinterpret_cast<const float4*>(p);
-  const float4 hi = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
-  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
-}
 
 // dy for 8 consecutive channels gc..gc+7 of row r: d and y point at the row's
 // first element, vecs is the (6, c) f32 row block. Returns 8 bf16 as a uint4.
@@ -105,13 +79,6 @@ __device__ __forceinline__ uint4 dy8(const __nv_bfloat16* __restrict__ d,
     o[e] = __float2bfloat16(__fmul_rn(inv[e], t));
   }
   return *reinterpret_cast<const uint4*>(o);
-}
-
-__device__ __forceinline__ void zero_acc(frag_acc (&acc)[FM][FN]) {
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 }
 
 // ---------------------------------------------------------------------------
@@ -230,19 +197,6 @@ mm_stats_kernel(const __nv_bfloat16* __restrict__ a,
   if (col0 + col < c)
     part[((size_t)blockIdx.y * 2 + which) * c + col0 + col] =
         red[0][which][col] + red[1][which][col];
-}
-
-// stats[which][col] = sum over row blocks, in order
-__global__ void stats_reduce_kernel(const float* __restrict__ part,
-                                    float* __restrict__ stats, int blocks,
-                                    int c) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= 2 * c) return;
-  const int which = i / c;
-  const int col = i % c;
-  float s = 0.f;
-  for (int b = 0; b < blocks; ++b) s += part[((size_t)b * 2 + which) * c + col];
-  stats[i] = s;
 }
 
 // ---------------------------------------------------------------------------
@@ -441,17 +395,6 @@ mm_bn_dw_kernel(const __nv_bfloat16* __restrict__ a,
       __syncwarp();
     }
   }
-}
-
-// out[i] = sum over splits s of part[s][i], in order
-__global__ void split_reduce_kernel(const float* __restrict__ part,
-                                    float* __restrict__ out, int splits,
-                                    size_t size) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= size) return;
-  float s = 0.f;
-  for (int z = 0; z < splits; ++z) s += part[(size_t)z * size + i];
-  out[i] = s;
 }
 
 }  // namespace

@@ -9,9 +9,12 @@ With ``fused_1x1`` each 1x1 conv+BN site that passes ``fuse_worthwhile``
 runs through the fused matmul kernels (mm_affine in eval, mm_bn_act_train in
 training: layer4's cb1, cb3 and downsample at full width); the cb3 +
 residual contract and the strided-downsample subsample follow the JAX
-package (``resnet.py:176-189``). ``block_megakernel`` (the JAX package's
-whole-block backward, ``ops/pallas/block_bwd.py``) is not ported yet: a
-training forward that would take it raises.
+package (``resnet.py:176-189``). With ``block_megakernel`` a training
+forward of each stride-1 block without downsample that passes
+``megakernel_ok`` runs as ``bottleneck_train`` (the whole-block backward
+kernels, ``ops/kernels/block_bwd.py``), which takes precedence over
+``fused_1x1`` as in the JAX package (``resnet.py:140-143``); eval keeps the
+plain block.
 """
 
 from __future__ import annotations
@@ -22,9 +25,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.kernels.block_bwd import bottleneck_train
 from .common import FastBatchNorm, conv_bn, fuse_worthwhile, fused_conv_bn_1x1
 
-__all__ = ["Bottleneck", "ResNetTrunk"]
+__all__ = ["Bottleneck", "ResNetTrunk", "megakernel_ok"]
+
+
+def megakernel_ok(width: int) -> bool:
+    """Width gate of the whole-block path: the widths the JAX package's
+    ``megakernel_vmem_ok`` admits (width <= 256: layer1-3 of a ResNet-50,
+    10 blocks per trunk), so both packages take the block path on the same
+    blocks. That gate is a TPU VMEM limit; the CUDA kernels have none (they
+    are checked at width 512 on the card), and widening it to layer4 waits
+    for measured times (ROADMAP B.4)."""
+    return width <= 256
 
 
 def _conv(cin, cout, k, stride=1, padding=0):
@@ -59,16 +73,14 @@ class Bottleneck(nn.Module):
                          and (not downsample
                               or fuse_worthwhile(in_planes, c_out)))
         # the JAX Bottleneck takes its whole-block backward for stride-1
-        # blocks without downsample (within its VMEM width gate)
-        self.megakernel = block_megakernel and stride == 1 and not downsample
+        # blocks without downsample within its width gate
+        self.megakernel = (block_megakernel and stride == 1
+                           and not downsample and megakernel_ok(width))
 
     def forward(self, x):
         dt = self.dtype
         if self.training and self.megakernel:
-            raise NotImplementedError(
-                "cuda.block_megakernel (the whole-block backward kernels of "
-                "ieee_tpu/ops/pallas/block_bwd.py) is not ported yet: "
-                "ROADMAP B.4")
+            return self._block_train(x)
         identity = x
         if self.fuse_cb1:
             out = fused_conv_bn_1x1(x, self.conv1.weight, self.bn1, True)
@@ -90,6 +102,24 @@ class Bottleneck(nn.Module):
             identity = conv_bn(x, self.downsample[0], self.downsample[1],
                                None, dt)
         return F.relu(out + identity)
+
+    def _block_train(self, x):
+        """``bottleneck_train`` on the NHWC view of x (free for a
+        channels_last map) with the OIHW weights viewed as (kh, kw, in,
+        out); the batch statistics update the three BNs' running ones once
+        per forward (flax's momentum, as the JAX ``_megakernel_block``)."""
+        def hwio(conv):
+            return conv.weight.permute(2, 3, 1, 0)
+
+        y, stats = bottleneck_train(
+            x.to(self.dtype).permute(0, 2, 3, 1),
+            hwio(self.conv1), self.bn1.weight, self.bn1.bias,
+            hwio(self.conv2), self.bn2.weight, self.bn2.bias,
+            hwio(self.conv3), self.bn3.weight, self.bn3.bias)
+        for bn, mean, var in zip((self.bn1, self.bn2, self.bn3), stats[0::2],
+                                 stats[1::2]):
+            bn.update_running(mean, var)
+        return y.permute(0, 3, 1, 2)
 
 
 class ResNetTrunk(nn.Module):

@@ -1,11 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every ``ieee_tpu_torch/csrc/*.cu`` source has a plain C interface. At first
-use, each source is compiled by its own ``nvcc`` process (all started
-together) for ``sm_90a``, the objects are linked into one shared library,
-and the library is loaded with ``ctypes``. No PyTorch header is included, so
-a build takes seconds. The library lands in ``ieee_tpu_torch/_kernels/<hash>/``,
-keyed by a hash of the sources and flags, so an edited source rebuilds and an
+Every ``ieee_tpu_torch/csrc/*.cu`` source has a plain C interface (shared
+device code lives in ``csrc/*.cuh`` headers). At first use, each source is
+compiled by its own ``nvcc`` process (all started together) for ``sm_90a``,
+the objects are linked into one shared library, and the library is loaded
+with ``ctypes``. No PyTorch header is included, so a build takes seconds.
+The library lands in ``ieee_tpu_torch/_kernels/<hash>/``, keyed by a hash of
+the sources, headers and flags, so an edited source rebuilds and an
 unchanged one loads the library already built.
 
 Nothing here runs at import time: the CPU tests import every kernel module on
@@ -44,6 +45,10 @@ _SIGNATURES = {
     "ieee_mm_stats_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "ieee_mm_bn_da_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ieee_mm_bn_dw_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "ieee_block_reduce3": [_P] * 7 + [_I] * 3 + [_P],
+    "ieee_block_bn3_apply": [_P] * 11 + [_I] * 5 + [_P],
+    "ieee_block_conv2_bwd": [_P] * 11 + [_I] * 6 + [_P],
+    "ieee_block_bn1_apply": [_P] * 9 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()
@@ -117,7 +122,8 @@ def load_library() -> ctypes.CDLL:
             return _state["lib"]
         t0 = time.perf_counter()
         sources = _sources()
-        out_dir = BUILD_ROOT / _digest(sources)
+        # the headers the sources include key the build as well
+        out_dir = BUILD_ROOT / _digest(sources + sorted(CSRC.glob("*.cuh")))
         if not (out_dir / "libieee_kernels.so").is_file():
             BUILD_ROOT.mkdir(parents=True, exist_ok=True)
             _compile(out_dir, sources)

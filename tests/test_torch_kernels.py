@@ -138,7 +138,8 @@ def test_wrappers_take_the_plain_version_on_cpu_and_count_nothing():
                                fused_partpool_project_plain(x, w, v, v))
     assert kernels.launch_counts() == {
         "distmat": 0, "partpool": 0, "mm_affine": 0, "mm_stats": 0,
-        "mm_bn_da": 0, "mm_bn_dw": 0}
+        "mm_bn_da": 0, "mm_bn_dw": 0, "reduce3": 0, "bn3_apply": 0,
+        "conv2_bwd": 0, "bn1_apply": 0}
 
 
 def test_wrappers_check_shapes_and_dtypes():

@@ -11,7 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+import torch.nn.functional as F
+
 from ieee_tpu_torch.ops import kernels
+from ieee_tpu_torch.ops.kernels import block_bwd as bb
 from ieee_tpu_torch.ops.kernels.distmat import euclidean_sq, euclidean_sq_plain
 from ieee_tpu_torch.ops.kernels.matmul_bn import (
     dy_plain,
@@ -224,3 +227,177 @@ def test_mm_bn_act_train_kernels_match_plain(cuda, n, k, c, relu, res):
             continue
         rel = (got[name] - want[name]).norm() / want[name].norm()
         assert rel <= 2 ** -8, (name, rel.item())
+
+
+# ---------------------------------------------- block backward kernels
+# (B, H, W, C, cm): the three stages the block path takes at batch 128
+# (layer1 at batch 128 itself: 262144 rows, whose dW products sum chains
+# long enough for the tensor cores' f32 accumulation to drift), layer4's
+# width 512 (the kernels have no width limit), a ragged batch (N = 384
+# rows) and an odd map (5x7x3: N = 105, taps at every border)
+BLOCK_SHAPES = [(128, 64, 32, 256, 64), (8, 32, 16, 512, 128),
+                (16, 16, 8, 1024, 256), (4, 16, 8, 2048, 512),
+                (3, 16, 8, 256, 64), (5, 7, 3, 64, 16)]
+
+
+def _block_inputs(b, h, w, c, cm, device):
+    """bf16 maps and f32 rows as the block backward sees them."""
+    bf16 = torch.bfloat16
+    maps = {name: _randn((b, h, w, ch), seed, device).to(bf16)
+            for seed, (name, ch) in enumerate(
+                (("dy", c), ("y", c), ("a3", c), ("a2", cm), ("a1", cm),
+                 ("x", c), ("d3", c), ("d2", cm), ("d1", cm)), start=40)}
+
+    def rows(ch, seed, n_rows):
+        r = [_randn((ch,), seed, device).abs() + 0.5,    # inv
+             0.5 * _randn((ch,), seed + 1, device),      # shift / mean
+             0.1 * _randn((ch,), seed + 2, device),      # mean / rstd
+             _randn((ch,), seed + 3, device).abs() + 0.5,
+             0.1 * _randn((ch,), seed + 4, device)]
+        return torch.stack(r[:n_rows])
+
+    vecs = dict(v3=rows(c, 50, 5), v2f=rows(cm, 55, 4), v2=rows(cm, 60, 5),
+                v1f=rows(cm, 65, 4), v1=rows(cm, 70, 5))
+    wts = dict(w1=_randn((c, cm), 75, device, c ** -0.5),
+               w2=_randn((3, 3, cm, cm), 76, device, (9 * cm) ** -0.5),
+               w3=_randn((cm, c), 77, device, cm ** -0.5))
+    return maps, vecs, wts
+
+
+def _bf16_close(got, want, name):
+    # one bf16 step of the value, plus 1e-3 of the map's rms where f32
+    # sums taken in another order round to neighbouring values near zero
+    got, want = got.float(), want.float()
+    tol = 2 ** -7 * want.abs() + 1e-3 * want.pow(2).mean().sqrt()
+    err = (got - want).abs()
+    assert bool((err <= tol).all()), (name, err.max().item())
+
+
+def _sums_close(got, want, bound, name):
+    # f32 sums of the same terms in another order: 1e-5 of sum |term|
+    err = (got - want).abs()
+    assert bool((err <= 1e-5 * bound + 1e-30).all()), (name, err.max().item())
+
+
+def _taps(t):
+    """The nine (N, C) views of a (B, H, W, C) map shifted by (ky - 1,
+    kx - 1), zero outside each image."""
+    b, h, w, c = t.shape
+    p = F.pad(t, (0, 0, 1, 1, 1, 1))
+    return [p[:, ky:ky + h, kx:kx + w].reshape(-1, c)
+            for ky in range(3) for kx in range(3)]
+
+
+def _run_twice(name, fn):
+    before = kernels.LAUNCHES[name]
+    got = fn()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    again = fn()  # deterministic: no float atomics
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), name
+    return got
+
+
+@pytest.mark.parametrize("b,h,w,c,cm", BLOCK_SHAPES)
+def test_reduce3_kernel_matches_plain(cuda, b, h, w, c, cm):
+    m, v, _ = _block_inputs(b, h, w, c, cm, cuda)
+    mean, rstd = v["v3"][1], v["v3"][2]
+    d3, s3 = _run_twice("reduce3", lambda: bb.reduce3(m["dy"], m["y"],
+                                                      m["a3"], mean, rstd))
+    want_d3, want_s3 = bb.reduce3_plain(m["dy"], m["y"], m["a3"], mean, rstd)
+    assert torch.equal(d3, want_d3)  # a mask and a copy: exact
+    g = bb._rows(want_d3).float().abs()
+    xh = bb._xhat(bb._rows(m["a3"]).float(), mean, rstd).abs()
+    _sums_close(s3, want_s3, torch.stack([g.sum(0), (g * xh).sum(0)]), "S3")
+
+
+@pytest.mark.parametrize("b,h,w,c,cm", BLOCK_SHAPES)
+def test_bn3_apply_kernel_matches_plain(cuda, b, h, w, c, cm):
+    m, v, wt = _block_inputs(b, h, w, c, cm, cuda)
+    args = (m["d3"], m["a3"], m["a2"], wt["w3"], v["v3"], v["v2f"])
+    d2, s2, dw3 = _run_twice("bn3_apply", lambda: bb.bn3_apply(*args))
+    want_d2, want_s2, want_dw3 = bb.bn3_apply_plain(*args)
+    _bf16_close(d2, want_d2, "d2")
+    da3 = bb._bn_bwd(bb._rows(m["d3"]), bb._rows(m["a3"]), v["v3"]).float()
+    a2f = bb._rows(m["a2"]).float()
+    h2 = bb._relu_bn(a2f, v["v2f"])
+    prod = (da3.abs() @ wt["w3"].to(torch.bfloat16).float().abs().t()) \
+        * (h2 > 0)
+    xh = bb._xhat(a2f, v["v2f"][2], v["v2f"][3]).abs()
+    _sums_close(s2, want_s2, torch.stack([prod.sum(0), (prod * xh).sum(0)]),
+                "S2")
+    _sums_close(dw3, want_dw3, h2.abs().t() @ da3.abs(), "dW3")
+
+
+@pytest.mark.parametrize("b,h,w,c,cm", BLOCK_SHAPES)
+def test_conv2_bwd_kernel_matches_plain(cuda, b, h, w, c, cm):
+    m, v, wt = _block_inputs(b, h, w, c, cm, cuda)
+    args = (m["d2"], m["a2"], m["a1"], wt["w2"], v["v2"], v["v1f"])
+    d1, s1, dw2 = _run_twice("conv2_bwd", lambda: bb.conv2_bwd(*args))
+    want_d1, want_s1, want_dw2 = bb.conv2_bwd_plain(*args)
+    _bf16_close(d1, want_d1, "d1")
+    da2 = bb._bn_bwd(bb._rows(m["d2"]), bb._rows(m["a2"]), v["v2"]).float()
+    a1f = bb._rows(m["a1"]).float()
+    h1 = bb._relu_bn(a1f, v["v1f"])
+    w2 = wt["w2"].to(torch.bfloat16).float().abs()
+    # input gradient: tap (ky, kx) reads da2 shifted by (1 - ky, 1 - kx)
+    da_taps = _taps(da2.abs().view(b, h, w, cm))
+    prod = sum(da_taps[8 - t] @ w2[t // 3, t % 3].t() for t in range(9)) \
+        * (h1 > 0)
+    xh = bb._xhat(a1f, v["v1f"][2], v["v1f"][3]).abs()
+    _sums_close(s1, want_s1, torch.stack([prod.sum(0), (prod * xh).sum(0)]),
+                "S1")
+    h_taps = _taps(h1.view(b, h, w, cm))
+    bound = torch.stack([ht.t() @ da2.abs() for ht in h_taps]).view(
+        3, 3, cm, cm)
+    _sums_close(dw2, want_dw2, bound, "dW2")
+
+
+@pytest.mark.parametrize("b,h,w,c,cm", BLOCK_SHAPES)
+def test_bn1_apply_kernel_matches_plain(cuda, b, h, w, c, cm):
+    m, v, wt = _block_inputs(b, h, w, c, cm, cuda)
+    args = (m["d1"], m["a1"], m["x"], m["d3"], wt["w1"], v["v1"])
+    dx, dw1 = _run_twice("bn1_apply", lambda: bb.bn1_apply(*args))
+    want_dx, want_dw1 = bb.bn1_apply_plain(*args)
+    _bf16_close(dx, want_dx, "dx")
+    da1 = bb._bn_bwd(bb._rows(m["d1"]), bb._rows(m["a1"]), v["v1"]).float()
+    _sums_close(dw1, want_dw1,
+                bb._rows(m["x"]).float().abs().t() @ da1.abs(), "dW1")
+
+
+# the whole op, kernels against ``plain=True`` on the same inputs: the
+# forward is the same code; in the backward the sums S3, S2, S1 differ in
+# order and d2, d1 and dx by a bf16 step here and there, which moves the
+# next BN backward a little: every gradient to a relative Frobenius error
+# of 2^-8, one bf16 step
+@pytest.mark.parametrize("b,h,w,c,cm", [(8, 64, 32, 256, 64),
+                                        (16, 16, 8, 1024, 256),
+                                        (3, 7, 5, 64, 16)])
+def test_bottleneck_train_kernels_match_plain(cuda, b, h, w, c, cm):
+    rnd = lambda shape, seed, s=1.0: _randn(shape, seed, cuda, s)  # noqa
+    x = rnd((b, h, w, c), 80).to(torch.bfloat16)
+    params = [rnd((1, 1, c, cm), 81, c ** -0.5), 1 + 0.1 * rnd((cm,), 82),
+              0.1 * rnd((cm,), 83), rnd((3, 3, cm, cm), 84, (9 * cm) ** -0.5),
+              1 + 0.1 * rnd((cm,), 85), 0.1 * rnd((cm,), 86),
+              rnd((1, 1, cm, c), 87, cm ** -0.5), 1 + 0.1 * rnd((c,), 88),
+              0.1 * rnd((c,), 89)]
+    ct = rnd((b, h, w, c), 90)
+    outs = {}
+    for plain in (False, True):
+        kernels.reset_launch_counts()
+        leaves = [x.clone().requires_grad_()] + [
+            p.clone().requires_grad_() for p in params]
+        y, stats = bb.bottleneck_train(*leaves, plain=plain)
+        (y.float() * ct).sum().backward()
+        torch.cuda.synchronize()
+        launched = [kernels.LAUNCHES[k] for k in
+                    ("reduce3", "bn3_apply", "conv2_bwd", "bn1_apply")]
+        assert launched == ([0] * 4 if plain else [1] * 4)
+        outs[plain] = (y, stats, [t.grad.float() for t in leaves])
+    (y, st, g), (y_p, st_p, g_p) = outs[False], outs[True]
+    assert torch.equal(y, y_p)
+    assert all(torch.equal(a, b_) for a, b_ in zip(st, st_p))
+    names = "dx dk1 ds1 db1 dk2 ds2 db2 dk3 ds3 db3".split()
+    for name, a, b_ in zip(names, g, g_p):
+        rel = ((a - b_).norm() / b_.norm()).item()
+        assert rel <= 2 ** -8, (name, rel)

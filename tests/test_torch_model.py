@@ -20,8 +20,10 @@ from ieee_tpu.models import build_model as jax_build_model
 from ieee_tpu.models.common import FastBatchNorm as JaxFastBatchNorm
 from ieee_tpu.models.fast_eval import build_fast_ieee_eval as jax_fast_eval
 from ieee_tpu.models.ieee_converter import convert_ieee_torch_checkpoint
+from ieee_tpu.models.resnet import megakernel_vmem_ok
 from ieee_tpu_torch.models import IEEE3modalPart, build_model
 from ieee_tpu_torch.models.common import FastBatchNorm
+from ieee_tpu_torch.models.resnet import Bottleneck
 from ieee_tpu_torch.models.fast_eval import (
     build_fast_ieee_eval,
     supports_fast_eval,
@@ -230,12 +232,31 @@ def test_fast_batchnorm_train_matches_flax_state():
 
 
 def test_training_forward_is_not_ported_yet():
-    # the training forward is ported except the whole-block backward of
-    # cfg.cuda.block_megakernel (ROADMAP B.4), which raises
+    # the name predates the block path; the training forward now takes
+    # cfg.cuda.block_megakernel's whole-block backward on exactly the blocks
+    # the JAX gate picks (stride 1, no downsample, megakernel_vmem_ok), and
+    # eval keeps the plain block
     with torch.device("meta"):
         model = IEEE3modalPart(num_classes=3, backbone_layers=(1, 2, 1, 1),
                                block_megakernel=True)  # layer2.1: stride 1
+    blocks = [(n, m) for n, m in model.named_modules()
+              if isinstance(m, Bottleneck)]
+    picked = [n for n, m in blocks if m.megakernel]
+    assert picked == [n for n, m in blocks
+                      if m.stride == 1 and m.downsample is None
+                      and megakernel_vmem_ok(m.conv2.out_channels)]
+    assert [n.split(".", 2)[2] for n in picked] == ["layer2.1"] * 3
     imgs = tuple(torch.zeros(1, 3, 32, 16, device="meta") for _ in range(3))
-    with pytest.raises(NotImplementedError, match="B.4"):
-        model.train()(imgs)
+    out = model.train()(imgs)
+    roots = [t.grad_fn for t in jax.tree_util.tree_leaves(out)
+             if isinstance(t, torch.Tensor) and t.grad_fn is not None]
+    seen, block_ops = set(), 0
+    while roots:
+        fn = roots.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        block_ops += type(fn).__name__ == "_BottleneckTrainBackward"
+        roots.extend(f for f, _ in fn.next_functions)
+    assert block_ops == 3  # one per trunk
     model.eval()(imgs)  # eval takes the plain block
