@@ -21,6 +21,10 @@ Phases (any failure raises and exits non-zero):
    block path takes in a batch-128 step (layer1-3: 6, 9 and 15 blocks per
    step over the three trunks), at layer4's width 512 and at a ragged
    batch; then the whole ``bottleneck_train`` op against ``plain=True``.
+   The probes' kernels run at the tools' shapes: ``scale_bf16`` on an
+   (8192, 8192) bf16 array at both tile heights and a ragged one (bit for
+   bit), ``probe_mm_stats`` (the ``mm_stats`` kernel) and ``bn_mm`` at
+   16384 x 2048 x 2048 and a ragged N.
 3. The eval path through the CLI, ``ieee_tpu_torch.main_multimodal``, with
    ``test.evaluate True`` on ``synthetic_mm`` at 256x128, batch 100,
    random weights: the launch counts are set to 0 just before and read
@@ -45,9 +49,16 @@ Phases (any failure raises and exits non-zero):
    ``torch.profiler`` summary by kernel; and the first step of each kernel
    path, from the same weights and batch, must agree with the plain one
    (loss, and every gradient tensor's cosine).
+8. The measurement tools (``ieee_tpu_torch/tools/``), each tool's
+   ``main()`` in-process at its defaults on the card (``profile_train``
+   with ``--steps 3``), launch counts set to 0 just before each and read
+   just after: ``bw_probe`` must launch ``scale_bf16``, ``fusion_probe``
+   ``mm_stats`` and ``bn_mm``, ``profile_train`` the train kernels (33 per
+   step), ``eval_bench`` the distmat, ``eval_fwd_bench`` partpool and
+   mm_affine. They print the bandwidth and matmul rates the card reaches.
 
-The line before the last is the JSON list of kernels; the last line is
-``{"ok": true, "device": {...}}``.
+Each phase prints its seconds. The line before the last is the JSON list
+of kernels; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -55,8 +66,6 @@ from __future__ import annotations
 import json
 import math
 import os
-import statistics
-import subprocess
 import sys
 import time
 
@@ -84,9 +93,25 @@ KERNELS = {
                   "ieee_tpu/ops/pallas/block_bwd.py:351"),
     "bn1_apply": ("ieee_tpu_torch/csrc/block_bwd.cu",
                   "ieee_tpu/ops/pallas/block_bwd.py:371"),
+    # one kernel, the probe's body at its two block heights
+    "scale_bf16": ("ieee_tpu_torch/csrc/probes.cu",
+                   "tools/bw_probe.py:66, tools/bw_probe.py:89"),
+    "bn_mm": ("ieee_tpu_torch/csrc/probes.cu", "tools/fusion_probe.py:129"),
 }
+EVAL_KERNELS = ("distmat", "partpool", "mm_affine")
 TRAIN_KERNELS = ("mm_stats", "mm_bn_da", "mm_bn_dw")
 BLOCK_KERNELS = ("reduce3", "bn3_apply", "conv2_bwd", "bn1_apply")
+# phase 8: each tool's arguments (besides --device cuda) and the kernels it
+# must launch (fusion_probe's probe_mm_stats runs on mm_stats: PERF.md row
+# 13 is row 4's kernel)
+TOOLS = (("bw_probe", [], ("scale_bf16",)),
+         ("fusion_probe", [], ("mm_stats", "bn_mm")),
+         ("bw_probe2", [], ()),
+         ("roofline_probe", [], ()),
+         ("profile_train", ["--steps", "3"], TRAIN_KERNELS),
+         ("eval_bench", [], ("distmat",)),
+         ("eval_fwd_bench", [], ("partpool", "mm_affine")),
+         ("loader_bench", [], ()))
 # blocks on the block path per train step (10 per trunk, 3 trunks)
 BLOCKS_PER_STEP = 30
 # least cosine between a fused and a plain step's gradient tensor (phase
@@ -94,10 +119,6 @@ BLOCKS_PER_STEP = 30
 # (measured on an H100: 0.84 fused vs plain; each bf16 path against the f32
 # step is printed beside it)
 GRAD_COS = 0.8
-
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, FLOP/s by type
-HBM_BPS = 3.35e12
-PEAK = {"bf16": 989e12, "f32": 67e12}
 
 # the fused 1x1 sites of one train step at batch 128 (N = 128*16*8 rows at
 # the 16x8 layer4 map): (N, K, C, relu, sites per step)
@@ -129,37 +150,9 @@ def die(msg: str, code: int = 2):
     sys.exit(code)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def bound_ms(flops: float, nbytes: float, kind: str):
-    """(least ms, "operations" or "bytes"): the larger of the operations
-    over the type's peak and the bytes (each input read once, each output
-    written once) over the memory rate."""
-    t_ops, t_bytes = flops / PEAK[kind] * 1e3, nbytes / HBM_BPS * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
+# the timing helpers of the checkout's package
+# (ieee_tpu_torch/tools/_timing.py), bound by main() once it has found it
+card_line = median_ms = bound_ms = None
 
 
 def randn(shape, seed, scale=1.0):
@@ -278,6 +271,7 @@ def check_kernels(results):
                weight=per_trunk.get((k, c), 0) if rows == n else 0)
 
     check_train_kernels(record)
+    check_probe_kernels(record)
 
 
 def check_train_kernels(record):
@@ -625,6 +619,107 @@ def check_block_op():
               + " (relative 2^-8)")
 
 
+def check_probe_kernels(record):
+    """Phase 2, the probes' kernels at the tools' shapes, each launched
+    twice (bit-identical). scale_bf16: bit for bit its plain version and
+    its input (the factor rounds to 1.0 in bf16); library call torch.mul,
+    and clone's time printed as the copy ceiling. probe_mm_stats: y as
+    mm_stats (one bf16 step + 1e-5 of the largest |y|), m to 1e-5 of
+    mean|y| and v to 1e-5 of mean y^2 plus what m's error moves in m^2;
+    library call the bf16 torch.matmul without the statistics. bn_mm: one
+    bf16 step of the value plus 1e-3 of the output's rms (h is bit for bit
+    the plain version's; the f32 sums differ in order); library call the
+    bf16 torch.matmul of the product alone (no call applies the BN on
+    load)."""
+    import torch
+
+    from ieee_tpu_torch.ops.kernels.probes import (
+        TILE_ROWS, bn_mm, bn_mm_plain, probe_mm_stats, probe_mm_stats_plain,
+        scale_bf16, scale_bf16_plain, scale_factor)
+
+    bf16 = torch.bfloat16
+
+    def twice(name, fn):
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"{name}: two runs differ")
+        return a
+
+    def randn(shape, seed, scale=1.0):  # made on the card: large arrays
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    # rows 11-12: the probe's (8192, 8192) array at both tile heights (one
+    # call each per unit), and a ragged array
+    c = scale_factor()
+    for rows, cols, weight in ((8192, 8192, 1), (1037, 8200, 0)):
+        x = randn((rows, cols), 100).to(bf16)
+        nbytes = 4.0 * rows * cols
+        for tile in TILE_ROWS:
+            (got,) = twice("scale_bf16", lambda: (scale_bf16(x, tile),))
+            if not torch.equal(got, x):
+                raise AssertionError(f"scale_bf16 {tile}: output != input")
+            record("scale_bf16", [rows, cols, tile], got.float(),
+                   scale_bf16_plain(x, tile).float(), 0.0,
+                   lambda: scale_bf16(x, tile),
+                   lambda: scale_bf16_plain(x, tile),
+                   lambda: torch.mul(x, c),
+                   bound_ms(1.0 * rows * cols, nbytes, "bf16"),
+                   weight=weight)
+        print(f"clone {[rows, cols]} (copy ceiling): "
+              f"{median_ms(lambda: x.clone()):.4f} ms")
+        del x, got
+
+    # row 13 (the mm_stats kernel) and row 14 at fusion_probe's CIM shape,
+    # and a ragged N
+    for n, k, cc, weight in ((16384, 2048, 2048, 1), (1037, 2048, 2048, 0)):
+        shape = [n, k, cc]
+        flops = 2.0 * n * k * cc
+        x = randn((n, k), 101).to(bf16)
+        w = randn((k, cc), 102, 0.02).to(bf16)
+        got = twice("probe_mm_stats", lambda: probe_mm_stats(x, w))
+        want = probe_mm_stats_plain(x, w)
+        y32 = x.float() @ w.float()
+        m_tol = 1e-5 * y32.abs().mean(0)
+        v_tol = 1e-5 * (y32 * y32).mean(0) + 2 * want[1].abs() * m_tol \
+            + m_tol * m_tol
+        del y32
+        for what, i, tol in (("m", 1, m_tol), ("v", 2, v_tol)):
+            err = (got[i] - want[i]).abs()
+            if not bool((err <= tol).all()):
+                raise AssertionError(f"probe_mm_stats {shape} {what}: "
+                                     f"{err.max().item()}")
+        want_y = want[0].float()
+        record("probe_mm_stats", shape, got[0].float(), want_y,
+               2 ** -7 * want_y.abs() + 1e-5 * want_y.abs().max(),
+               lambda: probe_mm_stats(x, w),
+               lambda: probe_mm_stats_plain(x, w),
+               lambda: torch.matmul(x, w),
+               bound_ms(flops, 2.0 * (n * k + k * cc + n * cc) + 8.0 * cc,
+                        "bf16"), weight=weight, iters=10)
+        print(f"probe_mm_stats {shape}: m err "
+              f"{(got[1] - want[1]).abs().max().item():.3e}, v err "
+              f"{(got[2] - want[2]).abs().max().item():.3e}")
+        del got, want, want_y
+
+        inv = randn((k,), 103).abs() + 0.5
+        sh = randn((k,), 104)
+        w2 = randn((k, cc), 105, k ** -0.5).to(bf16)
+        (got,) = twice("bn_mm", lambda: (bn_mm(x, inv, sh, w2),))
+        want = bn_mm_plain(x, inv, sh, w2).float()
+        h = torch.relu(x.float() * inv + sh).to(bf16)
+        record("bn_mm", shape, got.float(), want,
+               2 ** -7 * want.abs() + 1e-3 * want.pow(2).mean().sqrt(),
+               lambda: bn_mm(x, inv, sh, w2),
+               lambda: bn_mm_plain(x, inv, sh, w2),
+               lambda: torch.matmul(h, w2),
+               bound_ms(flops, 2.0 * (n * k + k * cc + n * cc) + 8.0 * k,
+                        "bf16"), weight=weight, iters=10)
+        del x, w, w2, h, got, want
+        torch.cuda.empty_cache()
+
+
 def main_path():
     """Phase 3: the CLI eval; returns the launch counts of its run."""
     from ieee_tpu_torch import main_multimodal
@@ -643,8 +738,7 @@ def main_path():
     print(f"main path: rank1 {rank1:.4f}, launches {counts}")
     if not 0.0 <= rank1 <= 1.0:
         raise AssertionError(f"rank-1 {rank1} outside [0, 1]")
-    missing = [k for k in ("distmat", "partpool", "mm_affine")
-               if counts[k] <= 0]
+    missing = [k for k in EVAL_KERNELS if counts[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the eval path: "
                              f"{missing}")
@@ -767,8 +861,8 @@ def train_path(block: bool = False):
         raise AssertionError(f"train loss not finite: {epoch['loss']}")
     if not 0.0 <= rank1 <= 1.0:
         raise AssertionError(f"rank-1 {rank1} outside [0, 1]")
-    missing = [k for k, v in counts.items()
-               if v <= 0 and (block or k not in BLOCK_KERNELS)]
+    missing = [k for k in EVAL_KERNELS + TRAIN_KERNELS
+               + (BLOCK_KERNELS if block else ()) if counts[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the train path: "
                              f"{missing}")
@@ -781,29 +875,6 @@ def train_path(block: bool = False):
     return counts
 
 
-def profile_steps(step, n: int = 2):
-    """torch.profiler over ``n`` steps: device ms per step, the busy share
-    of the profiled wall time, and the top kernels by device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            step()
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev = sum(e.self_device_time_total for e in rows) / 1e3  # us -> ms
-    rows.sort(key=lambda e: -e.self_device_time_total)
-    top = [(e.key[:70], e.count // n, e.self_device_time_total / 1e3 / n)
-           for e in rows[:12]]
-    return dev / n, dev / wall_ms, top
-
-
 def engine_train():
     """Phase 7: the train step at bench.py's protocol: fused, fused+block
     and plain."""
@@ -814,6 +885,7 @@ def engine_train():
     from ieee_tpu_torch.models import build_model
     from ieee_tpu_torch.ops import kernels
     from ieee_tpu_torch.optim import build_lr_scheduler, build_optimizer
+    from ieee_tpu_torch.tools.profile_train import profile_steps
 
     batch, num_pids = 128, 171
     dm = ImageDataManager(sources="synthetic_mm", height=256, width=128,
@@ -874,7 +946,7 @@ def engine_train():
               f"first step {launched}; profiler: {dev_ms:.3f} device ms "
               f"per step, busy {busy:.3f}")
         for key, cnt, ms in top:
-            print(f"  {ms:8.3f} ms/step {cnt:4d}x {key}")
+            print(f"  {ms:8.3f} ms/step {cnt:4d}x {key[:70]}")
         if not math.isfinite(loss):
             raise AssertionError(f"{name} train loss not finite: {loss}")
         del model, opt, eng, m
@@ -913,6 +985,39 @@ def engine_train():
             raise AssertionError(f"{a} and plain train steps disagree")
 
 
+def run_tools():
+    """Phase 8: each measurement tool's ``main()`` on the card; returns
+    the launch counts of each tool's run."""
+    import importlib
+
+    import torch
+
+    from ieee_tpu_torch.ops import kernels
+
+    launches = {}
+    for name, argv, must in TOOLS:
+        tool = importlib.import_module(f"ieee_tpu_torch.tools.{name}")
+        print(f"tool {name} {' '.join(argv)}", flush=True)
+        t0 = time.perf_counter()
+        kernels.reset_launch_counts()
+        tool.main(argv + ["--device", "cuda"])
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        launches[name] = counts
+        print(f"tool {name}: {time.perf_counter() - t0:.1f} s, launches "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+        missing = [k for k in must if counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"tool {name} launched none of {missing}")
+        if name == "profile_train" and (
+                len({counts[k] for k in TRAIN_KERNELS}) != 1
+                or counts["mm_stats"] % 33):
+            raise AssertionError(f"profile_train: train kernels not 33 per "
+                                 f"step: {counts}")
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     try:
         import torch
@@ -929,7 +1034,9 @@ def main():
             ieee_tpu_torch.__file__).startswith(ROOT + os.sep):
         die(f"ieee_tpu_torch not found next to {__file__}: run from the root "
             "of a checkout")
+    global card_line, median_ms, bound_ms
     from ieee_tpu_torch.ops import _build
+    from ieee_tpu_torch.tools._timing import bound_ms, card_line, median_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -964,15 +1071,26 @@ def main():
     t0 = time.perf_counter()
     engine_train()
     print(f"phase engine train: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tool_counts = run_tools()
+    print(f"phase tools: {time.perf_counter() - t0:.1f} s")
 
     # each kernel's reported numbers: the weighted sum of its cases, where
     # the weight is how often the case runs in the reported unit: distmat
     # at 836x836 (RGBNT201 test), partpool at the head's f32 call,
     # mm_affine over the seven layer4 calls of one trunk at batch 100, each
     # train kernel over the 33 fused sites of one train step at batch 128,
-    # and each block kernel over the 30 blocks of one train step at batch
-    # 128. launches: the train path's runs (phase 6), the default one for
-    # the first six kernels and the block one for the block kernels
+    # each block kernel over the 30 blocks of one train step at batch 128,
+    # scale_bf16 over one (8192, 8192) call at each tile height, bn_mm one
+    # 16384 x 2048 x 2048 call. launches: the train path's runs (phase 6),
+    # the default one for the first six kernels and the block one for the
+    # block kernels; the probe kernels' from their tools' runs (phase 8),
+    # and mm_stats adds fusion_probe's calls to the train path's
+    launches = {name: (block_counts if name in BLOCK_KERNELS
+                       else counts)[name] for name in KERNELS}
+    launches["scale_bf16"] = tool_counts["bw_probe"]["scale_bf16"]
+    for name in ("mm_stats", "bn_mm"):
+        launches[name] += tool_counts["fusion_probe"][name]
     line = {"kernels": []}
     for name, (source, replaces) in KERNELS.items():
         cases = [c for c in results[name]["cases"] if c["weight"]]
@@ -987,8 +1105,7 @@ def main():
         line["kernels"].append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": (block_counts if name in BLOCK_KERNELS
-                         else counts)[name],
+            "launches": launches[name],
             "max_abs_err": results[name]["max_abs_err"],
             "ms": total("ms"), "plain_ms": total("plain_ms"),
             "bound_ms": total("bound_ms"),

@@ -10,7 +10,8 @@ Ported so far: the IEEE retrieval path (config, datasets and loaders, the
 test transform, ``IEEE3modalPart`` with its folded fast-eval head, the
 distmat, CMC/mAP) and its training path (losses, optimizers, the P x K
 sampler, the flip, ``Image3MEngine``), with the CLI
-(``python -m ieee_tpu_torch.main_multimodal``) for both.
+(``python -m ieee_tpu_torch.main_multimodal``) for both, and the
+measurement tools (``python -m ieee_tpu_torch.tools.<name>``).
 """
 
 __version__ = "0.1.0"

@@ -40,10 +40,11 @@
 // through a loader that returns 8 bf16 of a logical matrix at (row,
 // column), which is where the BN backward, the recomputed h and the 3x3
 // shifts live:
-//   - rows_gemm: out (N, cols) = A (N, K) B (cols, K)^T, one block per
-//     128 rows and 128 columns; its epilogue either masks by [h > 0],
-//     stores bf16 and writes the block's channel sums [sum d, sum d*xhat]
-//     (d2, d1), or adds the residual d3 and stores bf16 (dx).
+//   - rows_gemm (row_gemm.cuh, shared with probes.cu): out (N, cols) =
+//     A (N, K) B (cols, K)^T, one block per 128 rows and 128 columns; its
+//     epilogue either masks by [h > 0], stores bf16 and writes the block's
+//     channel sums [sum d, sum d*xhat] (d2, d1), or adds the residual d3
+//     and stores bf16 (dx).
 //   - tgemm: dW (M, cols) = A (N, M)^T B (N, cols) over a contiguous range
 //     of rows per grid z (split N for occupancy), f32 partials.
 //   - The 3x3 convolution is the product over K = 9 cm (tap, channel): the
@@ -58,29 +59,13 @@
 // Loads are synchronous; cp.async/TMA pipelining and wgmma are later work.
 // Channel counts must be multiples of 8 (the wrappers check); any N runs.
 
-#include "wmma_tile.cuh"
+#include "row_gemm.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
 
 // tgemm adds its tensor-core sums into f32 totals every FLUSH steps of BK
 // rows (see there)
 constexpr int FLUSH = 4;
-
-__device__ __forceinline__ void unpack8(const bf16* p, float f[8]) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const bf16* b = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) f[e] = __bfloat162float(b[e]);
-}
-
-__device__ __forceinline__ uint4 pack8(const float f[8]) {
-  __align__(16) bf16 o[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) o[e] = __float2bfloat16(f[e]);
-  return *reinterpret_cast<const uint4*>(o);
-}
 
 __device__ __forceinline__ float xhat(float a, float mean, float rstd) {
   return __fmul_rn(__fsub_rn(a, mean), rstd);
@@ -110,37 +95,8 @@ __device__ __forceinline__ uint4 da8(const bf16* __restrict__ d,
   return pack8(o);
 }
 
-// h = bf16(relu(a * inv + shift)) for channels gc..gc+7 of one row; vf is
-// the (4, c) block [inv, shift, mean, rstd]
-__device__ __forceinline__ uint4 h8(const bf16* __restrict__ a,
-                                    const float* __restrict__ vf, int c,
-                                    int gc) {
-  float af[8], inv[8], shift[8];
-  unpack8(a + gc, af);
-  load_vec8(vf + gc, inv);
-  load_vec8(vf + c + gc, shift);
-  float o[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const float pre = __fadd_rn(__fmul_rn(af[e], inv[e]), shift[e]);
-    o[e] = pre > 0.f ? pre : 0.f;
-  }
-  return pack8(o);
-}
-
-// ---------------------------------------------------------------------------
-// operand loaders: load8(r, k) returns the 8 bf16 at (r, k..k+7) of a
-// logical matrix; the caller keeps r and k in range, a loader returns zero
-// where its logical matrix is padding
-// ---------------------------------------------------------------------------
-
-struct Plain {  // a row-major (rows, ld) bf16 matrix
-  const bf16* t;
-  int ld;
-  __device__ __forceinline__ uint4 load8(int r, int k) const {
-    return *reinterpret_cast<const uint4*>(t + (size_t)r * ld + k);
-  }
-};
+// the block backward's own operand loaders (row_gemm.cuh states their
+// contract and holds Plain, ReluBn and h8)
 
 struct BnBwd {  // da of rows d, a (N, c)
   const bf16* d;
@@ -152,16 +108,6 @@ struct BnBwd {  // da of rows d, a (N, c)
   }
 };
 
-struct ReluBn {  // h of rows a (N, c)
-  const bf16* a;
-  const float* vf;
-  int c;
-  __device__ __forceinline__ uint4 load8(int r, int k) const {
-    return h8(a + (size_t)r * c, vf, c, k);
-  }
-};
-
-// row of pixel (y + dy, x + dx) of the image that holds row r = (b*h + y)*w
 // + x, or -1 where it leaves the image
 struct Geom {
   int h, w;
@@ -210,6 +156,7 @@ struct ShiftedDa2 {
 struct TapWeight {
   const bf16* w;
   int cm;
+  static constexpr bool kKMajor = false;
   __device__ __forceinline__ uint4 load8(int r, int k) const {
     const int t = k / cm;
     return *reinterpret_cast<const uint4*>(w + ((size_t)t * cm + r) * cm +
@@ -274,128 +221,6 @@ __device__ __forceinline__ void add_acc(frag_acc (&total)[FM][FN],
         total[i][j].x[t] += acc[i][j].x[t];
         acc[i][j].x[t] = 0.f;
       }
-}
-
-// ---------------------------------------------------------------------------
-// out (n, cols) = A (n, kdim) @ B (cols, kdim)^T, with the epilogue; with
-// Epi::kStats each block writes its channel sums to spart (row blocks, 2,
-// cols)
-// ---------------------------------------------------------------------------
-
-template <class LA, class LB, class Epi>
-__global__ void __launch_bounds__(THREADS)
-rows_gemm_kernel(LA la, LB lb, Epi epi, float* __restrict__ spart, int n,
-                 int cols, int kdim) {
-  __shared__ __align__(128) bf16 as[BM][BK + PAD];
-  __shared__ __align__(128) bf16 bs[BN][BK + PAD];
-  __shared__ __align__(128) float scratch[THREADS / 32][2][16 * 16];
-  __shared__ float red[2][2][BN];  // [warp row][sum, sum*xhat][column]
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int wm = warp / WARPS_N;
-  const int wn = warp % WARPS_N;
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
-
-  frag_acc acc[FM][FN];
-  zero_acc(acc);
-
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int k0 = 0; k0 < kdim; k0 += BK) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int v = tid + e * THREADS;
-      const int r = v / (BK / 8);
-      const int kv = (v % (BK / 8)) * 8;
-      const int gk = k0 + kv;
-      const int gr = row0 + r;
-      *reinterpret_cast<uint4*>(&as[r][kv]) =
-          (gr < n && gk < kdim) ? la.load8(gr, gk) : zero;
-      const int gc = col0 + r;
-      *reinterpret_cast<uint4*>(&bs[r][kv]) =
-          (gc < cols && gk < kdim) ? lb.load8(gc, gk) : zero;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-          fa[FM];
-      // B^T (kdim, cols) is B (cols, kdim) read column-major
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
-          fb[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(fa[i], &as[wm * WM + i * 16][kk], BK + PAD);
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(fb[j], &bs[wn * WN + j * 16][kk], BK + PAD);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // each fragment goes through a per-warp 16x16 f32 scratch; a lane
-  // applies the epilogue to 8 of its values, then lanes 0-15 (16-31) add
-  // the column sums of the values (of their products with x-hat) over the
-  // fragment's 16 rows. Rows and columns out of range hold zeros.
-  float* sc = scratch[warp][0];
-  float* sx = scratch[warp][1];
-  const int er = lane / 2;
-  const int ec = (lane % 2) * 8;
-  const int sc_col = lane % 16;
-  const bool second = lane >= 16;
-  float colsum[FN] = {0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < FM; ++i) {
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      wmma::store_matrix_sync(sc, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int gr = row0 + wm * WM + i * 16 + er;
-      const int gc = col0 + wn * WN + j * 16 + ec;
-      float v[8], vx[8];
-      float a8[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) a8[e] = sc[er * 16 + ec + e];
-      if (gr < n && gc < cols) {
-        epi.apply(gr, gc, a8, v, vx);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = vx[e] = 0.f;
-      }
-      if constexpr (Epi::kStats) {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          sc[er * 16 + ec + e] = v[e];
-          sx[er * 16 + ec + e] = vx[e];
-        }
-        __syncwarp();
-        const float* src = second ? sx : sc;
-        float s = 0.f;
-#pragma unroll
-        for (int r = 0; r < 16; ++r) s += src[r * 16 + sc_col];
-        colsum[j] += s;
-      }
-      __syncwarp();
-    }
-  }
-  if constexpr (Epi::kStats) {
-#pragma unroll
-    for (int j = 0; j < FN; ++j)
-      red[wm][second ? 1 : 0][wn * WN + j * 16 + sc_col] = colsum[j];
-    __syncthreads();
-    const int which = tid / BN;  // 0: sum, 1: sum with x-hat
-    const int col = tid % BN;
-    if (col0 + col < cols)
-      spart[((size_t)blockIdx.y * 2 + which) * cols + col0 + col] =
-          red[0][which][col] + red[1][which][col];
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -554,25 +379,6 @@ reduce3_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ y,
   }
 }
 
-template <class LA, class LB, class Epi>
-cudaError_t launch_rows(LA la, LB lb, Epi epi, float* spart, float* sums,
-                        int n, int cols, int kdim, cudaStream_t s) {
-  const int row_blocks = (n + BM - 1) / BM;
-  dim3 grid((cols + BN - 1) / BN, row_blocks);
-  rows_gemm_kernel<<<grid, THREADS, 0, s>>>(la, lb, epi, spart, n, cols,
-                                            kdim);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  if constexpr (Epi::kStats) {
-    stats_reduce_kernel<<<(2 * cols + 255) / 256, 256, 0, s>>>(
-        spart, sums, row_blocks, cols);
-    err = cudaGetLastError();
-  }
-  return err;
-}
-
-// with splits > 1, part is scratch of (splits, m, cols) f32 and each split
-// reduces `rows` rows (a multiple of BK); with splits == 1, dw directly
 template <class LA, class LB>
 cudaError_t launch_t(LA la, LB lb, float* dw, float* part, int n, int m,
                      int cols, int splits, int rows, cudaStream_t s) {

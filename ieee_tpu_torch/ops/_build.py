@@ -37,6 +37,7 @@ CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures of csrc/*.cu; every function returns a cudaError_t as int
 _SIGNATURES = {
     "ieee_distmat_f32": [_P, _P, _P, _I, _I, _I, _P],
@@ -49,6 +50,8 @@ _SIGNATURES = {
     "ieee_block_bn3_apply": [_P] * 11 + [_I] * 5 + [_P],
     "ieee_block_conv2_bwd": [_P] * 11 + [_I] * 6 + [_P],
     "ieee_block_bn1_apply": [_P] * 9 + [_I] * 5 + [_P],
+    "ieee_scale_bf16": [_P, _P, _F, _I, _I, _I, _I, _P],
+    "ieee_bn_mm_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

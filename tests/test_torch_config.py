@@ -67,7 +67,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "partpool, ieee_tpu_torch.ops.kernels.matmul_bn, "
             "ieee_tpu_torch.ops.kernels.distmat, ieee_tpu_torch.losses, "
             "ieee_tpu_torch.optim, ieee_tpu_torch.data.sampler, "
-            "ieee_tpu_torch.engine.image.margin, ieee_tpu_torch.utils; "
+            "ieee_tpu_torch.engine.image.margin, ieee_tpu_torch.utils, "
+            "ieee_tpu_torch.ops.kernels.probes, ieee_tpu_torch.tools._timing, "
+            "ieee_tpu_torch.tools.bw_probe, ieee_tpu_torch.tools.bw_probe2, "
+            "ieee_tpu_torch.tools.fusion_probe, "
+            "ieee_tpu_torch.tools.roofline_probe, "
+            "ieee_tpu_torch.tools.profile_train, "
+            "ieee_tpu_torch.tools.eval_bench, "
+            "ieee_tpu_torch.tools.eval_fwd_bench, "
+            "ieee_tpu_torch.tools.loader_bench; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'ieee_tpu.')) or m == 'ieee_tpu']; "
             "assert not bad, bad")

@@ -139,7 +139,7 @@ def test_wrappers_take_the_plain_version_on_cpu_and_count_nothing():
     assert kernels.launch_counts() == {
         "distmat": 0, "partpool": 0, "mm_affine": 0, "mm_stats": 0,
         "mm_bn_da": 0, "mm_bn_dw": 0, "reduce3": 0, "bn3_apply": 0,
-        "conv2_bwd": 0, "bn1_apply": 0}
+        "conv2_bwd": 0, "bn1_apply": 0, "scale_bf16": 0, "bn_mm": 0}
 
 
 def test_wrappers_check_shapes_and_dtypes():

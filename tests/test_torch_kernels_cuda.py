@@ -32,6 +32,14 @@ from ieee_tpu_torch.ops.kernels.partpool import (
     fused_partpool_project,
     fused_partpool_project_plain,
 )
+from ieee_tpu_torch.ops.kernels.probes import (
+    bn_mm,
+    bn_mm_plain,
+    probe_mm_stats,
+    probe_mm_stats_plain,
+    scale_bf16,
+    scale_bf16_plain,
+)
 
 
 @pytest.fixture
@@ -401,3 +409,68 @@ def test_bottleneck_train_kernels_match_plain(cuda, b, h, w, c, cm):
     for name, a, b_ in zip(names, g, g_p):
         rel = ((a - b_).norm() / b_.norm()).item()
         assert rel <= 2 ** -8, (name, rel)
+
+
+# ------------------------------------------------------ probe kernels
+# The tools' shapes: bw_probe's (8192, 8192) array, fusion_probe's
+# 16384 x 2048 x 2048 product; plus ragged row counts and a small case.
+
+@pytest.mark.parametrize("rows,cols", [(8192, 8192), (1037, 8200),
+                                       (3, 16)])
+@pytest.mark.parametrize("tile", [512, 2048])
+def test_scale_bf16_kernel_matches_plain_bit_for_bit(cuda, rows, cols, tile):
+    x = _randn((rows, cols), 30, cuda, scale=3.0).to(torch.bfloat16)
+    before = kernels.LAUNCHES["scale_bf16"]
+    got, again = scale_bf16(x, tile), scale_bf16(x, tile)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["scale_bf16"] == before + 2
+    assert got.data_ptr() != x.data_ptr()  # a new array, every byte written
+    assert torch.equal(got, again)
+    assert torch.equal(got, scale_bf16_plain(x, tile))
+    assert torch.equal(got, x)  # bf16(1.0001) == 1
+
+
+# y one bf16 step (+1e-5 of the largest |y|); m and v from the kernel's
+# channel sums, 1e-5 of the summed magnitudes (per row: of mean|y| and
+# mean y^2, plus what m's error moves in m^2)
+@pytest.mark.parametrize("n", [16384, 1037])
+def test_probe_mm_stats_kernel_matches_plain(cuda, n):
+    k = c = 2048
+    x = _randn((n, k), 31, cuda).to(torch.bfloat16)
+    w = _randn((k, c), 32, cuda, scale=0.02).to(torch.bfloat16)
+    before = kernels.LAUNCHES["mm_stats"]
+    y, m, v = probe_mm_stats(x, w)
+    again = probe_mm_stats(x, w)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["mm_stats"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip((y, m, v), again))
+    y_p, m_p, v_p = probe_mm_stats_plain(x, w)
+    y32 = x.float() @ w.float()
+    m_tol = 1e-5 * y32.abs().mean(0)
+    v_tol = 1e-5 * (y32 * y32).mean(0) + 2 * m_p.abs() * m_tol + m_tol ** 2
+    assert ((m - m_p).abs() <= m_tol).all()
+    assert ((v - v_p).abs() <= v_tol).all()
+    want = y_p.float()
+    tol = 2 ** -7 * want.abs() + 1e-5 * want.abs().max()
+    assert ((y.float() - want).abs() <= tol).all()
+
+
+# h is bit for bit the plain version's; the f32 sums differ in order: one
+# bf16 step of the value plus 1e-3 of the output's rms
+@pytest.mark.parametrize("n,k,c", [(16384, 2048, 2048), (1037, 2048, 2048),
+                                   (13, 24, 40)])
+def test_bn_mm_kernel_matches_plain(cuda, n, k, c):
+    y = _randn((n, k), 33, cuda).to(torch.bfloat16)
+    inv = _randn((k,), 34, cuda).abs() + 0.5
+    sh = _randn((k,), 35, cuda)
+    w2 = _randn((k, c), 36, cuda, scale=k ** -0.5).to(torch.bfloat16)
+    before = kernels.LAUNCHES["bn_mm"]
+    got, again = bn_mm(y, inv, sh, w2), bn_mm(y, inv, sh, w2)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bn_mm"] == before + 2
+    assert got.dtype == torch.bfloat16 and got.shape == (n, c)
+    assert torch.equal(got, again)
+    want = bn_mm_plain(y, inv, sh, w2).float()
+    tol = 2 ** -7 * want.abs() + 1e-3 * want.pow(2).mean().sqrt()
+    assert ((got.float() - want).abs() <= tol).all(), (
+        (got.float() - want).abs().max().item())
