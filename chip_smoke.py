@@ -8,8 +8,8 @@ Phases (any failure raises and exits non-zero):
 
 1. The card's name and power limit; the kernels' build (``nvcc`` for
    ``sm_90a``, one process per source) and its time, each kernel's
-   registers, and the spills and ptxas warnings of the Hopper backward
-   kernels (``csrc/mm_bn_bwd.cu``).
+   registers, and the registers, spills and ptxas warnings of the Hopper
+   kernels (``csrc/mm_bn_bwd.cu``, ``csrc/bn_gemm_sm90.cu``).
 2. Each kernel at the main paths' shapes, plus ragged edges, against its
    plain PyTorch version on the same inputs (stated tolerance), with the
    median time of each over repeated launches (CUDA events), the time of
@@ -24,11 +24,12 @@ Phases (any failure raises and exits non-zero):
    against its plain version. The four block kernels run at the three stages the
    block path takes in a batch-128 step (layer1-3: 6, 9 and 15 blocks per
    step over the three trunks), at layer4's width 512 and at a ragged
-   batch; then the whole ``bottleneck_train`` op against ``plain=True``.
+   batch, ``bn3_apply`` also with 10 calls queued; then the whole
+   ``bottleneck_train`` op against ``plain=True``.
    The probes' kernels run at the tools' shapes: ``scale_bf16`` on an
    (8192, 8192) bf16 array at both tile heights and a ragged one (bit for
    bit), ``probe_mm_stats`` (the ``mm_stats`` kernel) and ``bn_mm`` at
-   16384 x 2048 x 2048 and a ragged N.
+   16384 x 2048 x 2048 and a ragged N, ``bn_mm`` also queued.
 3. The eval path through the CLI, ``ieee_tpu_torch.main_multimodal``, with
    ``test.evaluate True`` on ``synthetic_mm`` at 256x128, batch 100,
    random weights: the launch counts are set to 0 just before and read
@@ -50,7 +51,8 @@ Phases (any failure raises and exits non-zero):
    (kernels, 33 launches of each train kernel per step), fused+block (the
    same with ``block_megakernel``: also 30 launches of each block kernel)
    and plain: train triplets/s, peak device memory and a
-   ``torch.profiler`` summary by kernel; and the first step of each kernel
+   ``torch.profiler`` summary by kernel (fused+block: also the device ms
+   of ``bn3_apply``'s two product kernels); and the first step of each kernel
    path, from the same weights and batch, must agree with the plain one
    (loss, and every gradient tensor's cosine).
 8. The measurement tools (``ieee_tpu_torch/tools/``), each tool's
@@ -61,8 +63,9 @@ Phases (any failure raises and exits non-zero):
    step), ``eval_bench`` the distmat, ``eval_fwd_bench`` partpool and
    mm_affine. They print the bandwidth and matmul rates the card reaches.
 
-Each phase prints its seconds. The line before the last is the JSON list
-of kernels; the last line is ``{"ok": true, "device": {...}}``.
+Each phase prints its seconds, and the run its total. The line before the
+last is the JSON list of kernels; the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -91,7 +94,7 @@ KERNELS = {
                  "ieee_tpu/ops/pallas/matmul_bn.py:223"),
     "reduce3": ("ieee_tpu_torch/csrc/block_bwd.cu",
                 "ieee_tpu/ops/pallas/block_bwd.py:316"),
-    "bn3_apply": ("ieee_tpu_torch/csrc/block_bwd.cu",
+    "bn3_apply": ("ieee_tpu_torch/csrc/bn_gemm_sm90.cu",
                   "ieee_tpu/ops/pallas/block_bwd.py:332"),
     "conv2_bwd": ("ieee_tpu_torch/csrc/block_bwd.cu",
                   "ieee_tpu/ops/pallas/block_bwd.py:351"),
@@ -100,7 +103,8 @@ KERNELS = {
     # one kernel, the probe's body at its two block heights
     "scale_bf16": ("ieee_tpu_torch/csrc/probes.cu",
                    "tools/bw_probe.py:66, tools/bw_probe.py:89"),
-    "bn_mm": ("ieee_tpu_torch/csrc/probes.cu", "tools/fusion_probe.py:129"),
+    "bn_mm": ("ieee_tpu_torch/csrc/bn_gemm_sm90.cu",
+              "tools/fusion_probe.py:129"),
 }
 EVAL_KERNELS = ("distmat", "partpool", "mm_affine")
 TRAIN_KERNELS = ("mm_stats", "mm_bn_da", "mm_bn_dw")
@@ -281,6 +285,7 @@ def check_kernels(results):
 
     check_train_kernels(record, results)
     check_probe_kernels(record)
+    unit_line(results, "bn_mm", "16384 x 2048 x 2048 call")
 
 
 def check_train_kernels(record, results):
@@ -360,6 +365,7 @@ def check_train_kernels(record, results):
     site_table(results)
     check_train_op()
     check_block_kernels(record)
+    unit_line(results, "bn3_apply", "train step (30 blocks)")
     check_block_op()
 
 
@@ -389,6 +395,19 @@ def site_table(results):
                   f"{w * case['ms']:.4f} ms")
         print(f"  per step: kernel {totals[0]:.4f} ms, queued "
               f"{totals[1]:.4f} ms")
+
+
+def unit_line(results, name, unit):
+    """Phase 2: a kernel's weighted cases summed over its reported unit,
+    one call per timing and 10 queued (per call), beside the library call
+    and the bound."""
+    cases = [c for c in results[name]["cases"] if c["weight"]]
+    tot = {key: sum(c["weight"] * c[key] for c in cases)
+           for key in ("ms", "queued_ms", "library_ms", "bound_ms")}
+    ratio = tot["queued_ms"] / tot["library_ms"]
+    print(f"{name} per {unit}: kernel {tot['ms']:.4f} ms, queued "
+          f"{tot['queued_ms']:.4f} ms, library {tot['library_ms']:.4f} ms, "
+          f"bound {tot['bound_ms']:.4f} ms ({ratio:.2f}x library queued)")
 
 
 def check_train_op():
@@ -552,7 +571,7 @@ def check_block_kernels(record):
                         torch.matmul(da3, w3b.t())),
                bound_ms(4.0 * n * c * cm, 4.0 * n * c + 4.0 * n * cm
                         + 6.0 * cm * c + 20.0 * c + 24.0 * cm, "bf16"),
-               weight=blocks, iters=iters)
+               weight=blocks, iters=iters, queued=True)
         del da3, a2f, h2, h2b, prod, xh, want_d2
 
         # conv2_bwd: the 3x3 input and weight gradients of da2
@@ -758,7 +777,7 @@ def check_probe_kernels(record):
                lambda: bn_mm_plain(x, inv, sh, w2),
                lambda: torch.matmul(h, w2),
                bound_ms(flops, 2.0 * (n * k + k * cc + n * cc) + 8.0 * k,
-                        "bf16"), weight=weight, iters=10)
+                        "bf16"), weight=weight, iters=10, queued=True)
         del x, w, w2, h, got, want
         torch.cuda.empty_cache()
 
@@ -985,14 +1004,19 @@ def engine_train():
         dt = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         rates[name] = 20 * batch / dt
-        dev_ms, busy, top = profile_steps(lambda: eng.train_step(imgs, pids))
+        dev_ms, busy, rows = profile_steps(
+            lambda: eng.train_step(imgs, pids), top=1000)
         print(f"engine train {name}: {rates[name]:.1f} triplets/s "
               f"({dt / 20 * 1e3:.3f} ms/step, batch {batch}); last loss "
               f"{loss:.4f}; peak memory {peak:.2f} GiB; launches of the "
               f"first step {launched}; profiler: {dev_ms:.3f} device ms "
               f"per step, busy {busy:.3f}")
-        for key, cnt, ms in top:
+        for key, cnt, ms in rows[:12]:
             print(f"  {ms:8.3f} ms/step {cnt:4d}x {key[:70]}")
+        if block:  # bn3_apply's two products (not its small sum kernels)
+            bn3 = [(key, cnt, ms) for key, cnt, ms in rows if "bn3_" in key]
+            print(f"  bn3_apply products: {sum(r[2] for r in bn3):.3f} "
+                  f"device ms/step over {sum(r[1] for r in bn3)} launches")
         if not math.isfinite(loss):
             raise AssertionError(f"{name} train loss not finite: {loss}")
         del model, opt, eng, m
@@ -1065,6 +1089,7 @@ def run_tools():
 
 
 def main():
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -1146,6 +1171,7 @@ def main():
     launches["scale_bf16"] = tool_counts["bw_probe"]["scale_bf16"]
     for name in ("mm_stats", "bn_mm"):
         launches[name] += tool_counts["fusion_probe"][name]
+    print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     line = {"kernels": []}
     for name, (source, replaces) in KERNELS.items():
         cases = [c for c in results[name]["cases"] if c["weight"]]

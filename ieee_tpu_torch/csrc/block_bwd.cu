@@ -1,13 +1,11 @@
-// Whole-block backward of the stride-1 bottleneck without downsample: four
-// kernels, each one or two products with the BN backward and the
-// relu(bn(.)) recompute in their operand loads.
+// Whole-block backward of the stride-1 bottleneck without downsample:
+// three of its four kernels, each one or two products with the BN backward
+// and the relu(bn(.)) recompute in their operand loads (the fourth,
+// `_bn3_apply`, is in bn_gemm_sm90.cu).
 //
 // Replaces: ieee_tpu/ops/pallas/block_bwd.py
 //   `_reduce3` (body `_k_reduce3`): d3 = dy * [y > 0] (bf16 out) and the
 //       channel sums S31 = sum d3, S32 = sum d3 * xhat3 (f32);
-//   `_bn3_apply` (body `_k_bn3_apply`): da3 = bn3_bwd(d3); dW3 = h2^T da3
-//       (f32) with h2 = relu(a2 * inv2 + shift2); d2 = (da3 W3^T) * [h2 > 0]
-//       (bf16 out); S21, S22;
 //   `_conv2_bwd` (body `_k_conv2_bwd`): da2 = bn2_bwd(d2); dW2[ky, kx] =
 //       shift(h1)^T da2 (f32); d1 = (3x3 SAME input gradient of da2) *
 //       [h1 > 0] (bf16 out); S11, S12;
@@ -26,11 +24,11 @@
 //
 // What bounds them on an H100 (batch 128 at 256x128: N = 262144, 65536,
 // 16384 rows at widths cm = 64, 128, 256 and C = 4 cm): `_reduce3` moves
-// 8 N C bytes for no product, and `_bn3_apply` and `_bn1_apply` do
-// 4 N C cm flops over about 6 N C bytes, 2/3 cm flop per byte: all three
-// are bound by bytes. `_conv2_bwd` does 36 N cm^2 flops over about 8 N cm
-// bytes, 4.5 cm flop per byte, near the bf16 ridge of ~295 at cm = 64 and
-// above it at cm = 128, 256.
+// 8 N C bytes for no product, and `_bn1_apply` does 4 N C cm flops over
+// about 6 N C bytes, 2/3 cm flop per byte: both are bound by bytes.
+// `_conv2_bwd` does 36 N cm^2 flops over about 8 N cm bytes, 4.5 cm flop
+// per byte, near the bf16 ridge of ~295 at cm = 64 and above it at cm =
+// 128, 256.
 //
 // Design (simple first). The products are two templated WMMA bf16
 // mainloops (f32 accumulation) with the train kernels' tiling
@@ -40,11 +38,10 @@
 // through a loader that returns 8 bf16 of a logical matrix at (row,
 // column), which is where the BN backward, the recomputed h and the 3x3
 // shifts live:
-//   - rows_gemm (row_gemm.cuh, shared with probes.cu): out (N, cols) =
-//     A (N, K) B (cols, K)^T, one block per 128 rows and 128 columns; its
-//     epilogue either masks by [h > 0], stores bf16 and writes the block's
-//     channel sums [sum d, sum d*xhat] (d2, d1), or adds the residual d3
-//     and stores bf16 (dx).
+//   - rows_gemm (row_gemm.cuh): out (N, cols) = A (N, K) B (cols, K)^T,
+//     one block per 128 rows and 128 columns; its epilogue either masks by
+//     [h > 0], stores bf16 and writes the block's channel sums [sum d,
+//     sum d*xhat] (d1), or adds the residual d3 and stores bf16 (dx).
 //   - tgemm: dW (M, cols) = A (N, M)^T B (N, cols) over a contiguous range
 //     of rows per grid z (split N for occupancy), f32 partials.
 //   - The 3x3 convolution is the product over K = 9 cm (tap, channel): the
@@ -96,7 +93,7 @@ __device__ __forceinline__ uint4 da8(const bf16* __restrict__ d,
 }
 
 // the block backward's own operand loaders (row_gemm.cuh states their
-// contract and holds Plain, ReluBn and h8)
+// contract and holds Plain and h8)
 
 struct BnBwd {  // da of rows d, a (N, c)
   const bf16* d;
@@ -156,7 +153,6 @@ struct ShiftedDa2 {
 struct TapWeight {
   const bf16* w;
   int cm;
-  static constexpr bool kKMajor = false;
   __device__ __forceinline__ uint4 load8(int r, int k) const {
     const int t = k / cm;
     return *reinterpret_cast<const uint4*>(w + ((size_t)t * cm + r) * cm +
@@ -415,33 +411,6 @@ extern "C" int ieee_block_reduce3(const void* dy, const void* y,
       static_cast<const float*>(part), static_cast<float*>(s3), row_blocks,
       c);
   return static_cast<int>(cudaGetLastError());
-}
-
-// d2 (n, cm) bf16, s2 (2, cm) f32 and dw3 (cm, c) f32 from d3, a3 (n, c)
-// and a2 (n, cm) bf16, w3 (cm, c) bf16, v3 (5, c) and v2f (4, cm) f32.
-// spart: (ceil(n / 128), 2, cm) f32; wpart: (splits, cm, c) f32 or null.
-extern "C" int ieee_block_bn3_apply(const void* d3, const void* a3,
-                                    const void* a2, const void* w3,
-                                    const void* v3, const void* v2f, void* d2,
-                                    void* s2, void* dw3, void* spart,
-                                    void* wpart, int n, int c, int cm,
-                                    int splits, int rows, void* stream) {
-  if (n <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const BnBwd da3{static_cast<const bf16*>(d3), static_cast<const bf16*>(a3),
-                  static_cast<const float*>(v3), c};
-  const ReluBn h2{static_cast<const bf16*>(a2),
-                  static_cast<const float*>(v2f), cm};
-  cudaError_t err = launch_t(h2, da3, static_cast<float*>(dw3),
-                             static_cast<float*>(wpart), n, cm, c, splits,
-                             rows, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const MaskStats epi{static_cast<const bf16*>(a2),
-                      static_cast<const float*>(v2f), static_cast<bf16*>(d2),
-                      cm};
-  return static_cast<int>(launch_rows(
-      da3, Plain{static_cast<const bf16*>(w3), c}, epi,
-      static_cast<float*>(spart), static_cast<float*>(s2), n, cm, c, s));
 }
 
 // d1 (b*h*w, cm) bf16, s1 (2, cm) f32 and dw2 (3, 3, cm, cm) f32 from d2,

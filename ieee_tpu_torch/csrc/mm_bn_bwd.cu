@@ -72,6 +72,7 @@ constexpr int kThreads = kConsumers + 128;  // and the producer warpgroup
 constexpr int kProducerRegs = 56;
 constexpr int kConsumerRegs = 224;  // 128*56 + 256*224 <= 65536
 constexpr int kStages = 3;
+using Ring = sm90::Ring<kStages>;
 constexpr int kBK = 64;      // reduction step: one 128-byte row of bf16
 constexpr int kTileN = 256;  // wgmma N: output columns of a block
 constexpr int kRows = 128;   // output rows of a block (two m64)
@@ -89,10 +90,10 @@ constexpr uint32_t DW_Y = 49152;  // y (2 x 64 C) x 64 N rows
 constexpr uint32_t DW_TX = 65536;
 constexpr uint32_t DW_STAGE = 65536;
 constexpr int DW_PITCH = kRows + 4;  // epilogue f32 row pitch (no conflicts)
-// the ring, then the 2 x kStages mbarriers; + 1024: the dynamic base is
+// the ring, then its mbarriers; + 1024: the dynamic base is
 // aligned up to 1024 bytes in the kernel
-constexpr int DA_SMEM = kStages * DA_STAGE + 2 * kStages * 8 + 1024;
-constexpr int DW_SMEM = kStages * DW_STAGE + 2 * kStages * 8 + 1024;
+constexpr int DA_SMEM = kStages * DA_STAGE + Ring::kBarrierBytes + 1024;
+constexpr int DW_SMEM = kStages * DW_STAGE + Ring::kBarrierBytes + 1024;
 static_assert(kTileN * DW_PITCH * 4 <= kStages * DW_STAGE,
               "the dW epilogue reuses the stage ring");
 
@@ -108,30 +109,6 @@ __device__ __forceinline__ float dy1(float d, float y, float inv,
   const float xhat = __fmul_rn(__fsub_rn(y, mean), rstd);
   const float t = __fsub_rn(__fsub_rn(g, s1), __fmul_rn(xhat, s2));
   return __fmul_rn(inv, t);
-}
-
-// The stage ring both kernels share: kStages stages at `base`, then the
-// full[s] mbarriers (the producer's expected bytes; TMA completes them) and
-// the empty[s] ones (every consumer warp arrives once the wgmmas that read
-// the stage have completed).
-struct Ring {
-  uint32_t full, empty;
-  __device__ Ring(uint32_t base, uint32_t stage_bytes)
-      : full(base + kStages * stage_bytes),
-        empty(base + kStages * stage_bytes + kStages * 8) {}
-  __device__ uint32_t full_bar(int s) const { return full + 8 * s; }
-  __device__ uint32_t empty_bar(int s) const { return empty + 8 * s; }
-};
-
-__device__ __forceinline__ void ring_init(const Ring& ring) {
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      sm90::mbar_init(ring.full_bar(s), 1);
-      sm90::mbar_init(ring.empty_bar(s), kConsumers / 32);
-    }
-    sm90::mbar_init_fence();
-  }
-  __syncthreads();
 }
 
 // ---------------------------------------------------------------------------
@@ -151,7 +128,7 @@ mm_bn_da_sm90(const __grid_constant__ CUtensorMap tm_d,
   const uint32_t base = (raw + 1023u) & ~1023u;
   const uint8_t* gbase = smem_raw + (base - raw);
   const Ring ring(base, DA_STAGE);
-  ring_init(ring);
+  ring.init(kConsumers / 32);
 
   const int tid = threadIdx.x;
   const int row0 = blockIdx.y * kRows;
@@ -263,7 +240,7 @@ mm_bn_dw_sm90(const __grid_constant__ CUtensorMap tm_a,
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* gbase = smem_raw + (base - raw);
   const Ring ring(base, DW_STAGE);
-  ring_init(ring);
+  ring.init(kConsumers / 32);
 
   const int tid = threadIdx.x;
   const int ch0 = blockIdx.x * kRows;
@@ -378,12 +355,6 @@ mm_bn_dw_sm90(const __grid_constant__ CUtensorMap tm_a,
   }
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
 }  // namespace
 
 // da (n, k) bf16 from d, y (n, c) bf16, vecs (6, c) f32, w (k, c) bf16.
@@ -402,7 +373,7 @@ extern "C" int ieee_mm_bn_da_bf16(const void* d, const void* y,
                            6, c, 6, 64, CU_TENSOR_MAP_SWIZZLE_NONE))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = relu ? mm_bn_da_sm90<true> : mm_bn_da_sm90<false>;
-  cudaError_t err = allow_smem(kernel, DA_SMEM);
+  cudaError_t err = sm90::allow_smem(kernel, DA_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((k + kTileN - 1) / kTileN, (n + kRows - 1) / kRows);
   kernel<<<grid, kThreads, DA_SMEM, static_cast<cudaStream_t>(stream)>>>(
@@ -432,7 +403,7 @@ extern "C" int ieee_mm_bn_dw_bf16(const void* a, const void* d, const void* y,
       !sm90::tensor_map_2d(&tm_a, a, bf, 2, n, k, kBK, 64, sw))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = relu ? mm_bn_dw_sm90<true> : mm_bn_dw_sm90<false>;
-  cudaError_t err = allow_smem(kernel, DW_SMEM);
+  cudaError_t err = sm90::allow_smem(kernel, DW_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   float* dst = splits > 1 ? static_cast<float*>(part) : static_cast<float*>(dw);
   dim3 grid((c + kRows - 1) / kRows, (k + kTileN - 1) / kTileN, splits);

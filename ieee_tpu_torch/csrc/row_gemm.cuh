@@ -1,14 +1,12 @@
-// The row GEMM shared by the block backward (block_bwd.cu) and the
-// probes' BN+ReLU-on-load matmul (probes.cu): out (n, cols) = A (n, kdim)
-// times B^T, bf16 operands through loaders, f32 WMMA accumulation on the
-// tiling of wmma_tile.cuh, and an epilogue per output row block. A loader
+// The row GEMM of the block backward (block_bwd.cu; probes.cu shares its
+// bf16 helpers): out (n, cols) = A (n, kdim) times B^T, bf16 operands
+// through loaders, f32 WMMA accumulation on the tiling of wmma_tile.cuh,
+// and an epilogue per output row block. A loader
 // returns 8 bf16 of a logical matrix, so a BN (+ReLU) can be applied to an
 // operand as it is loaded; an epilogue stores the f32 accumulators and may
 // return the values for per-block channel sums (added in a fixed order by
 // stats_reduce_kernel: no float atomics).
 #pragma once
-
-#include <type_traits>
 
 #include "wmma_tile.cuh"
 
@@ -57,50 +55,23 @@ __device__ __forceinline__ uint4 h8(const bf16* __restrict__ a,
 struct Plain {  // a row-major (rows, ld) bf16 matrix
   const bf16* t;
   int ld;
-  static constexpr bool kKMajor = false;
   __device__ __forceinline__ uint4 load8(int r, int k) const {
     return *reinterpret_cast<const uint4*>(t + (size_t)r * ld + k);
   }
 };
 
-struct PlainT {  // B^T stored as a row-major (kdim, ld) bf16 matrix
-  const bf16* t;
-  int ld;
-  static constexpr bool kKMajor = true;
-  __device__ __forceinline__ uint4 load8(int k, int c) const {
-    return *reinterpret_cast<const uint4*>(t + (size_t)k * ld + c);
-  }
-};
-
-struct ReluBn {  // h of rows a (N, c); reads the first two rows of vf
-  const bf16* a;
-  const float* vf;
-  int c;
-  __device__ __forceinline__ uint4 load8(int r, int k) const {
-    return h8(a + (size_t)r * c, vf, c, k);
-  }
-};
-
-
 // ---------------------------------------------------------------------------
 // out (n, cols) = A (n, kdim) @ B (cols, kdim)^T, with the epilogue; with
 // Epi::kStats each block writes its channel sums to spart (row blocks, 2,
-// cols). A B loader with kKMajor = true reads B^T as stored, (kdim, cols)
-// rows: load8(k, col) returns B^T at (k, col..col+7).
+// cols).
 // ---------------------------------------------------------------------------
 
 template <class LA, class LB, class Epi>
 __global__ void __launch_bounds__(THREADS)
 rows_gemm_kernel(LA la, LB lb, Epi epi, float* __restrict__ spart, int n,
                  int cols, int kdim) {
-  // B's tile: BN rows of B (cols, kdim), or with LB::kKMajor BK rows of
-  // the stored B^T (kdim, cols)
-  constexpr bool kKMajor = LB::kKMajor;
-  constexpr int BLD = kKMajor ? BN + PAD : BK + PAD;
-  using LayoutB =
-      std::conditional_t<kKMajor, wmma::row_major, wmma::col_major>;
   __shared__ __align__(128) bf16 as[BM][BK + PAD];
-  __shared__ __align__(128) bf16 bs[kKMajor ? BK : BN][BLD];
+  __shared__ __align__(128) bf16 bs[BN][BK + PAD];  // BN rows of B
   __shared__ __align__(128) float scratch[THREADS / 32][2][16 * 16];
   __shared__ float red[2][2][BN];  // [warp row][sum, sum*xhat][column]
 
@@ -126,37 +97,24 @@ rows_gemm_kernel(LA la, LB lb, Epi epi, float* __restrict__ spart, int n,
       const int gr = row0 + r;
       *reinterpret_cast<uint4*>(&as[r][kv]) =
           (gr < n && gk < kdim) ? la.load8(gr, gk) : zero;
-      if constexpr (kKMajor) {
-        const int kr = v / (BN / 8);
-        const int cv = (v % (BN / 8)) * 8;
-        const int gkr = k0 + kr;
-        const int gc = col0 + cv;
-        *reinterpret_cast<uint4*>(&bs[kr][cv]) =
-            (gkr < kdim && gc < cols) ? lb.load8(gkr, gc) : zero;
-      } else {
-        const int gc = col0 + r;
-        *reinterpret_cast<uint4*>(&bs[r][kv]) =
-            (gc < cols && gk < kdim) ? lb.load8(gc, gk) : zero;
-      }
+      const int gc = col0 + r;
+      *reinterpret_cast<uint4*>(&bs[r][kv]) =
+          (gc < cols && gk < kdim) ? lb.load8(gc, gk) : zero;
     }
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
           fa[FM];
-      // B^T (kdim, cols) is B (cols, kdim) read column-major, or the
-      // stored (kdim, cols) rows read row-major
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayoutB> fb[FN];
+      // B^T (kdim, cols) is B (cols, kdim) read column-major
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
+          fb[FN];
 #pragma unroll
       for (int i = 0; i < FM; ++i)
         wmma::load_matrix_sync(fa[i], &as[wm * WM + i * 16][kk], BK + PAD);
 #pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        if constexpr (kKMajor)
-          wmma::load_matrix_sync(fb[j], &bs[kk][wn * WN + j * 16], BLD);
-        else
-          wmma::load_matrix_sync(fb[j], &bs[wn * WN + j * 16][kk], BLD);
-      }
+      for (int j = 0; j < FN; ++j)
+        wmma::load_matrix_sync(fb[j], &bs[wn * WN + j * 16][kk], BK + PAD);
 #pragma unroll
       for (int i = 0; i < FM; ++i)
 #pragma unroll
@@ -240,7 +198,5 @@ cudaError_t launch_rows(LA la, LB lb, Epi epi, float* spart, float* sums,
   }
   return err;
 }
-
-// with splits > 1, part is scratch of (splits, m, cols) f32 and each split
 
 }  // namespace

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks for hand-written matrix products: TMA
-// tile loads into 128-byte-swizzled shared tiles counted in by mbarriers,
-// producer/consumer warp specialisation (setmaxnreg), ldmatrix fragment
-// loads, and wgmma m64n256k16 with A from registers (the RS form) and B
-// from shared memory through a matrix descriptor, f32 accumulators in
+// tile loads into 128-byte-swizzled shared tiles counted in by mbarriers
+// (a ring of stages, with waits bounded in time), producer/consumer warp
+// specialisation (setmaxnreg), ldmatrix fragment loads, and wgmma
+// m64n256k16 and m64n64k16 with A from registers (the RS form) and B from
+// shared memory through a matrix descriptor, f32 accumulators in
 // registers; on the host, the 2D tensor maps the TMA loads read.
 //
 // Shared tiles use the 128-byte swizzle that wgmma reads natively
@@ -42,6 +43,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstdio>
 
 namespace sm90 {
 
@@ -111,21 +113,79 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
                : "memory");
 }
 
-// waits until the phase of parity `parity` of `bar` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
+// the wait's bound: a phase that has not completed after this many
+// nanoseconds of the global timer never will (a wrong expected byte count or
+// parity); every legitimate wait of these kernels lasts microseconds
+constexpr uint64_t kWaitBoundNs = 1000000000ull;
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
 }
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// out of line: the report stays out of the waits' registers
+static __device__ __noinline__ void mbar_timed_out(uint32_t bar,
+                                                   uint32_t parity) {
+  if ((threadIdx.x & 31) == 0)  // one report per warp
+    printf("sm90 mbarrier wait timed out: block (%d, %d, %d) thread %d, "
+           "barrier at shared 0x%x, parity %u\n",
+           blockIdx.x, blockIdx.y, blockIdx.z, threadIdx.x, bar, parity);
+  __trap();
+}
+
+// waits until the phase of parity `parity` of `bar` has completed; past
+// kWaitBoundNs it reports the block, the barrier and the parity and traps,
+// so a ring that can never fill fails its launch instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const uint64_t t0 = global_ns();
+  while (!mbar_try_wait(bar, parity))
+    if (global_ns() - t0 > kWaitBoundNs) mbar_timed_out(bar, parity);
+}
+
+// A ring of STAGES stages at `base` (each stage_bytes), then the full[s]
+// mbarriers (the producer's expected bytes; TMA completes them) and the
+// empty[s] ones (every consumer warp arrives once the wgmmas that read the
+// stage have completed). Step t of a loop uses slot t % STAGES; its full
+// phase has parity (t / STAGES) & 1, and the producer's wait on the slot's
+// empty barrier the opposite one (the first round passes: the parity of
+// the phase before the first).
+template <int STAGES>
+struct Ring {
+  static constexpr int kBarrierBytes = 2 * STAGES * 8;
+  uint32_t full, empty;
+  __device__ Ring(uint32_t base, uint32_t stage_bytes)
+      : full(base + STAGES * stage_bytes), empty(full + STAGES * 8) {}
+  __device__ uint32_t full_bar(int s) const { return full + 8 * s; }
+  __device__ uint32_t empty_bar(int s) const { return empty + 8 * s; }
+  // thread 0 initialises the barriers (empty ones for `consumer_warps`
+  // arrivals), then the block syncs
+  __device__ void init(int consumer_warps) const {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < STAGES; ++s) {
+        mbar_init(full_bar(s), 1);
+        mbar_init(empty_bar(s), consumer_warps);
+      }
+      mbar_init_fence();
+    }
+    __syncthreads();
+  }
+};
 
 // --- TMA --------------------------------------------------------------------
 
@@ -138,6 +198,12 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x), "r"(y)
       : "memory");
+}
+
+// orders this thread's generic-proxy writes to shared memory before the
+// async proxy's later accesses to it (wgmma operand reads, TMA writes)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // barrier `id` (1-15; 0 is __syncthreads) over `count` threads
@@ -228,6 +294,35 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128],
         "n"(TRANS_B));
 }
 
+// d (64 x 64 per warpgroup, f32) += A (64 x 16, bf16 fragments a) * B
+// (16 x 64, descriptor b); the accumulator layout is m64n256's first 32
+// registers
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+        "n"(TRANS_B));
+}
+
 // the two bf16 of a packed pair as f32 (low half first)
 __device__ __forceinline__ float bf16_lo(uint32_t v) {
   return __uint_as_float(v << 16);
@@ -283,6 +378,14 @@ inline bool tensor_map_2d(CUtensorMap* map, const void* ptr,
                 step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// lets `kernel` take `bytes` of dynamic shared memory (above the 48 KB
+// default)
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 }  // namespace sm90

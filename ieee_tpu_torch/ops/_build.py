@@ -157,20 +157,26 @@ def build_log() -> str:
 
 def kernel_resources(log: str) -> dict:
     """Each entry function of an ``nvcc -Xptxas -v`` log: {mangled name:
-    {"registers": n, "spill_stores": bytes, "spill_loads": bytes}}."""
-    out, name = {}, None
+    {"registers": n, "spill_stores": bytes, "spill_loads": bytes}}. The
+    spills are those ptxas lists under the entry's own "Function
+    properties", not a called function's."""
+    out, name, props = {}, None, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            name = m.group(1)
+            name = props = m.group(1)
             out[name] = {"registers": None, "spill_stores": None,
                          "spill_loads": None}
             continue
         if name is None:
             continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
-        if m:
+        if m and props == name:
             out[name]["spill_stores"] = int(m.group(1))
             out[name]["spill_loads"] = int(m.group(2))
         m = re.search(r"Used (\d+) registers", line)
@@ -186,4 +192,7 @@ def check(code: int, name: str) -> None:
 
 
 def stream_ptr(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of the current CUDA stream on ``device`` (a tensor's
+    device, so its index is set), through the accessor PyTorch's compiled
+    kernels use: ``current_stream()`` builds a Stream object each call."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -38,8 +38,8 @@ dx = round(f32(da1 @ W1^T) + f32(d3)). Products take operands in the
 dtype and sum in f32; dW and the sums are f32.
 
 Each wrapper takes its plain version (``*_plain``) for CPU tensors and
-launches its kernel (``csrc/block_bwd.cu``, bf16 only) for CUDA tensors, or
-raises.
+launches its kernel (``csrc/block_bwd.cu``; ``bn3_apply``'s in
+``csrc/bn_gemm_sm90.cu``; bf16 only) for CUDA tensors, or raises.
 """
 
 from __future__ import annotations
@@ -56,7 +56,20 @@ __all__ = ["reduce3", "reduce3_plain", "bn3_apply", "bn3_apply_plain",
            "bottleneck_train"]
 
 _BF16 = torch.bfloat16
-_TILE = 128  # rows of one tile of the product kernels (csrc/block_bwd.cu)
+_TILE = 128  # rows of one tile of the product kernels (channel sums)
+
+#: bn3_apply's dW3 kernel (csrc/bn_gemm_sm90.cu): a block owns 128 channels
+#: of C and a tile of cm (``_bn3_width``) and walks its rows of N in steps
+#: of 64
+BN3_ROW_STEP = 64
+#: fewest rows a split range takes, so that a partial's write and read stay
+#: small against its product
+BN3_MIN_ROWS = 512
+#: longest range at the 256-wide cm tile, whose accumulators have no
+#: registers left for f32 totals (narrower tiles add theirs into totals
+#: every 128 rows): the tensor cores' f32 sums drift over long same-signed
+#: chains
+BN3_MAX_UNFLUSHED_ROWS = 1024
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
@@ -174,13 +187,36 @@ def _kernel_operands(name, maps, vecs, weights):
 
 
 def _splits(n: int, m: int, cols: int, sms: int = 132):
-    """(splits, rows per split) of a dW product's N-reduction into an
-    (m, cols) output: enough 128x128 output tiles times ranges to give
-    every SM two blocks, with at least 1024 rows per range (rows a multiple
-    of the kernels' 32-row step)."""
+    """(splits, rows per split) of conv2_bwd's and bn1_apply's dW
+    N-reduction into an (m, cols) output: enough 128x128 output tiles times
+    ranges to give every SM two blocks, with at least 1024 rows per range
+    (rows a multiple of the WMMA kernels' 32-row step)."""
     tiles = -(-m // 128) * -(-cols // 128)
     s = max(1, min(-(-2 * sms // tiles), n // 1024))
     return s, -(-n // (s * 32)) * 32
+
+
+def _bn3_width(cm: int) -> int:
+    """Columns of cm one bn3_apply block owns: 64, 128 or 256."""
+    return 64 if cm <= 64 else 128 if cm <= 128 else 256
+
+
+def _bn3_plan(n: int, c: int, cm: int, sms: int = 132):
+    """(splits, rows): bn3_apply's dW3 kernel reduces N in ``splits``
+    contiguous ranges of ``rows`` rows each (a multiple of the 64-row step;
+    the last range may be short, none is empty), in parallel over grid z.
+    The ranges fill one wave of the card's SMs (one block per SM) with the
+    (C / 128) x (cm / width) output tiles, none is shorter than
+    BN3_MIN_ROWS unless N is, and at the 256-wide tile none is longer than
+    BN3_MAX_UNFLUSHED_ROWS."""
+    width = _bn3_width(cm)
+    tiles = -(-c // 128) * -(-cm // width)
+    splits = max(1, min(sms // tiles, n // BN3_MIN_ROWS))
+    rows = max(BN3_ROW_STEP,
+               -(-n // (splits * BN3_ROW_STEP)) * BN3_ROW_STEP)
+    if width == 256:
+        rows = min(rows, BN3_MAX_UNFLUSHED_ROWS)
+    return max(1, -(-n // rows)), rows
 
 
 def _f32(*shape, device):
@@ -236,7 +272,7 @@ def bn3_apply(d3, a3, a2, w3, v3, v2f):
     d2 = torch.empty_like(a2)
     s2, dw3 = _f32(2, cm, device=dev), _f32(cm, c, device=dev)
     spart = _f32(max(1, -(-n // _TILE)), 2, cm, device=dev)
-    splits, rows = _splits(n, cm, c)
+    splits, rows = _bn3_plan(n, c, cm)
     wpart = _f32(splits, cm, c, device=dev) if splits > 1 else None
     _build.check(lib.ieee_block_bn3_apply(
         d3.data_ptr(), a3.data_ptr(), a2.data_ptr(), w3.data_ptr(),

@@ -15,8 +15,8 @@
   ``h = bf16(relu(y * inv + sh))`` applied as the operand is loaded.
 
 Each kernel wrapper takes the plain version (``*_plain``) for CPU tensors
-and launches the CUDA kernel (``csrc/probes.cu``) for CUDA tensors, or
-raises.
+and launches the CUDA kernel (``csrc/probes.cu``; ``bn_mm``'s in
+``csrc/bn_gemm_sm90.cu``) for CUDA tensors, or raises.
 """
 
 from __future__ import annotations

@@ -332,7 +332,14 @@ def test_reduce3_kernel_matches_plain(cuda, b, h, w, c, cm):
     _sums_close(s3, want_s3, torch.stack([g.sum(0), (g * xh).sum(0)]), "S3")
 
 
-@pytest.mark.parametrize("b,h,w,c,cm", BLOCK_SHAPES)
+# bn3_apply also at layer2 and layer3 of a batch-128 step, and at cm of 8
+# and 24 (one 64-wide cm tile mostly zero-filled; C of 32 and 96: a
+# 128-channel tile half or three quarters past C)
+BN3_SHAPES = BLOCK_SHAPES + [(128, 32, 16, 512, 128), (128, 16, 8, 1024, 256),
+                             (3, 16, 8, 32, 8), (5, 7, 3, 96, 24)]
+
+
+@pytest.mark.parametrize("b,h,w,c,cm", BN3_SHAPES)
 def test_bn3_apply_kernel_matches_plain(cuda, b, h, w, c, cm):
     m, v, wt = _block_inputs(b, h, w, c, cm, cuda)
     args = (m["d3"], m["a3"], m["a2"], wt["w3"], v["v3"], v["v2f"])
@@ -470,8 +477,10 @@ def test_probe_mm_stats_kernel_matches_plain(cuda, n):
 
 # h is bit for bit the plain version's; the f32 sums differ in order: one
 # bf16 step of the value plus 1e-3 of the output's rms
-@pytest.mark.parametrize("n,k,c", [(16384, 2048, 2048), (1037, 2048, 2048),
-                                   (13, 24, 40)])
+@pytest.mark.parametrize("n,k,c", [
+    (16384, 2048, 2048), (1037, 2048, 2048), (1, 2048, 2048), (13, 24, 40),
+    (1037, 8, 264), (1037, 264, 24), (1, 24, 8), (1037, 8, 8),
+    (1037, 264, 264)])
 def test_bn_mm_kernel_matches_plain(cuda, n, k, c):
     y = _randn((n, k), 33, cuda).to(torch.bfloat16)
     inv = _randn((k,), 34, cuda).abs() + 0.5
@@ -487,3 +496,53 @@ def test_bn_mm_kernel_matches_plain(cuda, n, k, c):
     tol = 2 ** -7 * want.abs() + 1e-3 * want.pow(2).mean().sqrt()
     assert ((got.float() - want).abs() <= tol).all(), (
         (got.float() - want).abs().max().item())
+
+
+# The bounded mbarrier wait (csrc/sm90_gemm.cuh `mbar_wait`): a copy of the
+# package, made in tmp_path, whose bn_mm expects 16 bytes more per stage
+# than its TMA copies bring, so its ring can never fill. The launch must
+# fail within seconds with the wait's report, not hang the card.
+_TRAP_CHILD = """
+import time, torch
+from ieee_tpu_torch.ops import _build
+_build.load_library()
+from ieee_tpu_torch.ops.kernels.probes import bn_mm
+y = torch.randn(1024, 256, device='cuda').bfloat16()
+w = torch.randn(256, 512, device='cuda').bfloat16()
+inv, sh = torch.ones(256, device='cuda'), torch.zeros(256, device='cuda')
+t = time.perf_counter()
+try:
+    bn_mm(y, inv, sh, w)
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print(f'launch failed after {time.perf_counter() - t:.2f} s: {e}')
+    raise SystemExit(1)
+print('no fault')
+"""
+
+
+def test_mbarrier_wait_is_bounded_and_traps(cuda, tmp_path):
+    import shutil
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    import ieee_tpu_torch
+
+    shutil.copytree(Path(ieee_tpu_torch.__file__).parent,
+                    tmp_path / "ieee_tpu_torch",
+                    ignore=shutil.ignore_patterns("_kernels", "__pycache__"))
+    src = tmp_path / "ieee_tpu_torch" / "csrc" / "bn_gemm_sm90.cu"
+    text = src.read_text()
+    expect = "sm90::mbar_expect_tx(bar, MM_TX);"
+    assert text.count(expect) == 1
+    src.write_text(text.replace(expect,
+                                "sm90::mbar_expect_tx(bar, MM_TX + 16);"))
+    run = subprocess.run([sys.executable, "-c", _TRAP_CHILD], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=600)
+    out = run.stdout + run.stderr
+    assert run.returncode != 0 and "launch failed after" in out, out[-2000:]
+    assert "sm90 mbarrier wait timed out" in out, out[-2000:]
+    seconds = float(out.split("launch failed after ")[1].split(" s")[0])
+    print(f"bn_mm with a wrong byte count failed after {seconds} s")
+    assert seconds < 30, out[-2000:]

@@ -1,13 +1,21 @@
-"""The pure-Python planning around the Hopper backward kernels
-(``csrc/mm_bn_bwd.cu``): the dW kernel's split of N into row ranges, and
-the parsing of ``nvcc -Xptxas -v`` output that ``chip_smoke.py`` prints.
-Both run on the CPU in milliseconds; the kernels themselves are held to
-their plain versions on the card in ``tests/test_torch_kernels_cuda.py``.
+"""The pure-Python planning around the Hopper kernels (``csrc/mm_bn_bwd.cu``,
+``csrc/bn_gemm_sm90.cu``): the dW kernels' splits of N into row ranges,
+and the parsing of ``nvcc -Xptxas -v`` output that ``chip_smoke.py``
+prints. All run on the CPU in milliseconds; the kernels themselves are
+held to their plain versions on the card in
+``tests/test_torch_kernels_cuda.py``.
 """
 
 import pytest
 
 from ieee_tpu_torch.ops import _build
+from ieee_tpu_torch.ops.kernels.block_bwd import (
+    BN3_MAX_UNFLUSHED_ROWS,
+    BN3_MIN_ROWS,
+    BN3_ROW_STEP,
+    _bn3_plan,
+    _bn3_width,
+)
 from ieee_tpu_torch.ops.kernels.matmul_bn import (
     DW_MIN_ROWS,
     DW_ROW_STEP,
@@ -46,12 +54,48 @@ def test_dw_plan_splits_the_small_outputs_of_the_step():
     assert _dw_plan(16384, 2048, 2048, sms=SMS) == (1, 16384)
 
 
+# (N, C, cm): bn3_apply at layer1-3 of a batch-128 step, width 512, the
+# card tests' smaller batches, ragged batches and cm of 8, 16 and 24
+@pytest.mark.parametrize("n,c,cm", [
+    (262144, 256, 64), (65536, 512, 128), (16384, 1024, 256),
+    (16384, 2048, 512), (4096, 512, 128), (2048, 1024, 256),
+    (384, 256, 64), (105, 64, 16), (384, 32, 8), (105, 96, 24),
+    (1, 32, 8), (200000, 1024, 192)])
+def test_bn3_plan_covers_n_in_whole_steps_and_bounds_the_chains(n, c, cm):
+    splits, rows = _bn3_plan(n, c, cm, sms=SMS)
+    assert splits >= 1 and rows % BN3_ROW_STEP == 0
+    assert (splits - 1) * rows < n <= splits * rows
+    width = _bn3_width(cm)
+    tiles = -(-c // 128) * -(-cm // width)
+    if width == 256:  # no f32 totals: the chains stay short
+        assert rows <= BN3_MAX_UNFLUSHED_ROWS
+    else:  # one wave of blocks, unless the output tiles alone exceed it
+        assert tiles * splits <= max(SMS, tiles)
+    if splits > 1:
+        assert rows >= min(BN3_MIN_ROWS, BN3_MAX_UNFLUSHED_ROWS)
+
+
+def test_bn3_plan_at_the_block_path_stages():
+    # layer1: 2 output tiles of 128 x 64, 66 ranges of 4032 rows: 132
+    # blocks, one per SM
+    assert _bn3_width(64) == 64
+    assert _bn3_plan(262144, 256, 64, sms=SMS) == (66, 4032)
+    # layer2: 4 tiles of 128 x 128, 32 ranges of 2048 rows
+    assert _bn3_width(128) == 128
+    assert _bn3_plan(65536, 512, 128, sms=SMS) == (32, 2048)
+    # layer3: 8 tiles of 128 x 256, 16 ranges of 1024 rows
+    assert _bn3_width(256) == _bn3_width(512) == 256
+    assert _bn3_plan(16384, 1024, 256, sms=SMS) == (16, 1024)
+
+
 LOG = """== mm_bn_bwd.cu
 ptxas info    : 0 bytes gmem
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113mm_bn_dw_sm90ILb1EEEvPK13__nv_bfloat16S3_S3_PKfPfiiii' for 'sm_90a'
 ptxas info    : Function properties for _ZN12_GLOBAL__N_113mm_bn_dw_sm90ILb1EEEvPK13__nv_bfloat16S3_S3_PKfPfiiii
     8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
 ptxas info    : Used 232 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Function properties for _ZN4sm9014mbar_timed_outEjj
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Compiling entry function '_Z19split_reduce_kernelPKfPfim' for 'sm_90a'
 ptxas info    : Function properties for _Z19split_reduce_kernelPKfPfim
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
@@ -60,6 +104,8 @@ ptxas info    : Used 10 registers, 384 bytes cmem[0]
 
 
 def test_kernel_resources_reads_registers_and_spills():
+    # a called function's properties (the wait's out-of-line report) do
+    # not overwrite the kernel's own spills
     res = _build.kernel_resources(LOG)
     assert len(res) == 2
     dw = next(v for name, v in res.items() if "mm_bn_dw_sm90" in name)
