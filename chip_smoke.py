@@ -8,8 +8,11 @@ Phases (any failure raises and exits non-zero):
 
 1. The card's name and power limit; the kernels' build (``nvcc`` for
    ``sm_90a``, one process per source) and its time, each kernel's
-   registers, and the registers, spills and ptxas warnings of the Hopper
-   kernels (``csrc/mm_bn_bwd.cu``, ``csrc/bn_gemm_sm90.cu``).
+   registers, and the registers, spills and ptxas warnings of each
+   instance of the Hopper kernels (``csrc/mm_bn_bwd.cu``,
+   ``csrc/bn_gemm_sm90.cu``, ``csrc/block_bwd_sm90.cu``; names demangled
+   where ``c++filt`` is found), spilling instances named once more, and
+   each distinct ptxas performance note with its count.
 2. Each kernel at the main paths' shapes, plus ragged edges, against its
    plain PyTorch version on the same inputs (stated tolerance), with the
    median time of each over repeated launches (CUDA events), the time of
@@ -24,7 +27,9 @@ Phases (any failure raises and exits non-zero):
    against its plain version. The four block kernels run at the three stages the
    block path takes in a batch-128 step (layer1-3: 6, 9 and 15 blocks per
    step over the three trunks), at layer4's width 512 and at a ragged
-   batch, ``bn3_apply`` also with 10 calls queued; then the whole
+   batch, the three product kernels (``bn3_apply``, ``conv2_bwd``,
+   ``bn1_apply``) also with 10 calls queued, with a table of their times
+   per stage and their per-step lines; then the whole
    ``bottleneck_train`` op against ``plain=True``.
    The probes' kernels run at the tools' shapes: ``scale_bf16`` on an
    (8192, 8192) bf16 array at both tile heights and a ragged one (bit for
@@ -52,7 +57,8 @@ Phases (any failure raises and exits non-zero):
    same with ``block_megakernel``: also 30 launches of each block kernel)
    and plain: train triplets/s, peak device memory and a
    ``torch.profiler`` summary by kernel (fused+block: also the device ms
-   of ``bn3_apply``'s two product kernels); and the first step of each kernel
+   of the product kernels of each of ``bn3_apply``, ``conv2_bwd`` (with its
+   operand pass) and ``bn1_apply``); and the first step of each kernel
    path, from the same weights and batch, must agree with the plain one
    (loss, and every gradient tensor's cosine).
 8. The measurement tools (``ieee_tpu_torch/tools/``), each tool's
@@ -61,7 +67,8 @@ Phases (any failure raises and exits non-zero):
    just after: ``bw_probe`` must launch ``scale_bf16``, ``fusion_probe``
    ``mm_stats`` and ``bn_mm``, ``profile_train`` the train kernels (33 per
    step), ``eval_bench`` the distmat, ``eval_fwd_bench`` partpool and
-   mm_affine. They print the bandwidth and matmul rates the card reaches.
+   mm_affine, ``block_bench`` the three block product kernels. They print
+   the bandwidth and matmul rates the card reaches.
 
 Each phase prints its seconds, and the run its total. The line before the
 last is the JSON list of kernels; the last line is ``{"ok": true,
@@ -96,9 +103,9 @@ KERNELS = {
                 "ieee_tpu/ops/pallas/block_bwd.py:316"),
     "bn3_apply": ("ieee_tpu_torch/csrc/bn_gemm_sm90.cu",
                   "ieee_tpu/ops/pallas/block_bwd.py:332"),
-    "conv2_bwd": ("ieee_tpu_torch/csrc/block_bwd.cu",
+    "conv2_bwd": ("ieee_tpu_torch/csrc/block_bwd_sm90.cu",
                   "ieee_tpu/ops/pallas/block_bwd.py:351"),
-    "bn1_apply": ("ieee_tpu_torch/csrc/block_bwd.cu",
+    "bn1_apply": ("ieee_tpu_torch/csrc/block_bwd_sm90.cu",
                   "ieee_tpu/ops/pallas/block_bwd.py:371"),
     # one kernel, the probe's body at its two block heights
     "scale_bf16": ("ieee_tpu_torch/csrc/probes.cu",
@@ -109,6 +116,13 @@ KERNELS = {
 EVAL_KERNELS = ("distmat", "partpool", "mm_affine")
 TRAIN_KERNELS = ("mm_stats", "mm_bn_da", "mm_bn_dw")
 BLOCK_KERNELS = ("reduce3", "bn3_apply", "conv2_bwd", "bn1_apply")
+# the block kernels whose two products run on the shared Hopper bodies
+# (csrc/bn_gemm_sm90.cuh), with what names their device kernels in a
+# profile: the Op of their product instances, and conv2_bwd's operand pass
+# (not the small in-order sum kernels)
+BLOCK_PRODUCTS = (("bn3_apply", ("Bn3Op",)),
+                  ("conv2_bwd", ("Conv2Op", "conv2_prep")),
+                  ("bn1_apply", ("Bn1Op",)))
 # phase 8: each tool's arguments (besides --device cuda) and the kernels it
 # must launch (fusion_probe's probe_mm_stats runs on mm_stats: PERF.md row
 # 13 is row 4's kernel)
@@ -119,7 +133,8 @@ TOOLS = (("bw_probe", [], ("scale_bf16",)),
          ("profile_train", ["--steps", "3"], TRAIN_KERNELS),
          ("eval_bench", [], ("distmat",)),
          ("eval_fwd_bench", [], ("partpool", "mm_affine")),
-         ("loader_bench", [], ()))
+         ("loader_bench", [], ()),
+         ("block_bench", [], ("conv2_bwd", "bn1_apply", "bn3_apply")))
 # blocks on the block path per train step (10 per trunk, 3 trunks)
 BLOCKS_PER_STEP = 30
 # least cosine between a fused and a plain step's gradient tensor (phase
@@ -161,6 +176,19 @@ def die(msg: str, code: int = 2):
 # the timing helpers of the checkout's package
 # (ieee_tpu_torch/tools/_timing.py), bound by main() once it has found it
 card_line = median_ms = bound_ms = None
+
+
+def demangle(name: str) -> str:
+    """A kernel's C++ name through ``c++filt`` where the machine has it,
+    else the mangled name (display only)."""
+    import shutil
+    import subprocess
+
+    tool = shutil.which("c++filt")
+    if tool is None:
+        return name
+    out = subprocess.run([tool, name], capture_output=True, text=True)
+    return out.stdout.strip() or name
 
 
 def randn(shape, seed, scale=1.0):
@@ -365,7 +393,9 @@ def check_train_kernels(record, results):
     site_table(results)
     check_train_op()
     check_block_kernels(record)
-    unit_line(results, "bn3_apply", "train step (30 blocks)")
+    stage_table(results)
+    for name, _ in BLOCK_PRODUCTS:
+        unit_line(results, name, "train step (30 blocks)")
     check_block_op()
 
 
@@ -395,6 +425,26 @@ def site_table(results):
                   f"{w * case['ms']:.4f} ms")
         print(f"  per step: kernel {totals[0]:.4f} ms, queued "
               f"{totals[1]:.4f} ms")
+
+
+def stage_table(results):
+    """Phase 2: the block path's product kernels per stage of one
+    batch-128 train step: ms per call ("kernel": one wrapper call between
+    two events; "queued": 10 calls back to back, per call), the library
+    call and the bound, and per step (x blocks)."""
+    for name, _ in BLOCK_PRODUCTS:
+        print(f"stages of {name} (ms per call; per step = x blocks):")
+        for case in results[name]["cases"]:
+            if not case["weight"]:
+                continue
+            b, h, w, c, cm = case["shape"]
+            lib, bound = case["library_ms"], case["bound_ms"]
+            print(f"  {h:2d}x{w:2d} C {c:4d} cm {cm:3d} x{case['weight']}: "
+                  f"kernel {case['ms']:.4f} queued {case['queued_ms']:.4f} "
+                  f"library {lib:.4f} bound {bound:.4f} "
+                  f"({case['queued_ms'] / lib:.2f}x library, "
+                  f"{case['queued_ms'] / bound:.2f}x bound, queued); per "
+                  f"step {case['weight'] * case['ms']:.4f} ms")
 
 
 def unit_line(results, name, unit):
@@ -606,7 +656,8 @@ def check_block_kernels(record):
                lambda: (conv2d_input(h1n.shape, w2o, da2n, padding=1),
                         conv2d_weight(h1n, w2o.shape, da2n, padding=1)),
                bound_ms(36.0 * n * cm * cm, 8.0 * n * cm + 54.0 * cm * cm
-                        + 44.0 * cm, "bf16"), weight=blocks, iters=iters)
+                        + 44.0 * cm, "bf16"), weight=blocks, iters=iters,
+               queued=True)
         del da2, h1, da2n, h1n, w2o, want_d1
 
         # bn1_apply: dW1 = x^T da1 and dx = da1 W1^T + d3
@@ -625,7 +676,7 @@ def check_block_kernels(record):
                         torch.matmul(da1, w1b.t())),
                bound_ms(4.0 * n * c * cm, 6.0 * n * c + 4.0 * n * cm
                         + 6.0 * c * cm + 20.0 * cm, "bf16"),
-               weight=blocks, iters=iters)
+               weight=blocks, iters=iters, queued=True)
         del got, want, da1, xr, want_dx
         torch.cuda.empty_cache()
 
@@ -1013,10 +1064,13 @@ def engine_train():
               f"per step, busy {busy:.3f}")
         for key, cnt, ms in rows[:12]:
             print(f"  {ms:8.3f} ms/step {cnt:4d}x {key[:70]}")
-        if block:  # bn3_apply's two products (not its small sum kernels)
-            bn3 = [(key, cnt, ms) for key, cnt, ms in rows if "bn3_" in key]
-            print(f"  bn3_apply products: {sum(r[2] for r in bn3):.3f} "
-                  f"device ms/step over {sum(r[1] for r in bn3)} launches")
+        if block:  # each block kernel's products (not its sum kernels)
+            for kname, keys in BLOCK_PRODUCTS:
+                prods = [(cnt, ms) for key, cnt, ms in rows
+                         if any(k in key for k in keys)]
+                print(f"  {kname} products: "
+                      f"{sum(r[1] for r in prods):.3f} device ms/step over "
+                      f"{sum(r[0] for r in prods)} launches")
         if not math.isfinite(loss):
             raise AssertionError(f"{name} train loss not finite: {loss}")
         del model, opt, eng, m
@@ -1120,14 +1174,29 @@ def main():
     for line in log.splitlines():
         if "registers" in line or line.startswith("=="):
             print("  " + line.strip())
+    spilling = []
     for name, res in _build.kernel_resources(log).items():
         if "_sm90" in name:
+            name = demangle(name)
             print(f"  {name}: {res['registers']} registers, spill stores "
                   f"{res['spill_stores']} B, spill loads {res['spill_loads']} "
                   f"B")
+            if res["spill_stores"] or res["spill_loads"]:
+                spilling.append(name)
+    for name in spilling:
+        print(f"  SPILLS: {name}")
+    # ptxas warnings, and each distinct performance note once with its
+    # count (ptxas prints them after a unit's last entry function, so the
+    # kernel a note is about is not known)
+    notes: dict = {}
     for line in log.splitlines():
         if "warning" in line.lower():
             print("  " + line.strip())
+        elif "Performance Loss" in line:
+            note = line.split("Potential Performance Loss:")[1].strip()
+            notes[note] = notes.get(note, 0) + 1
+    for note, count in notes.items():
+        print(f"  ptxas performance note (x{count}): {note}")
 
     results: dict = {}
     t0 = time.perf_counter()

@@ -21,7 +21,7 @@
 // plain version's (and JAX's) bf16 multiply. cols % 8 == 0 (the wrapper
 // checks); any row count runs.
 
-#include "row_gemm.cuh"  // unpack8, pack8
+#include "wmma_tile.cuh"  // unpack8, pack8
 
 namespace {
 

@@ -50,7 +50,7 @@ _SIGNATURES = {
     "ieee_mm_bn_dw_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "ieee_block_reduce3": [_P] * 7 + [_I] * 3 + [_P],
     "ieee_block_bn3_apply": [_P] * 11 + [_I] * 5 + [_P],
-    "ieee_block_conv2_bwd": [_P] * 11 + [_I] * 6 + [_P],
+    "ieee_block_conv2_bwd": [_P] * 13 + [_I] * 6 + [_P],
     "ieee_block_bn1_apply": [_P] * 9 + [_I] * 5 + [_P],
     "ieee_scale_bf16": [_P, _P, _F, _I, _I, _I, _I, _P],
     "ieee_bn_mm_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],

@@ -38,8 +38,10 @@ dx = round(f32(da1 @ W1^T) + f32(d3)). Products take operands in the
 dtype and sum in f32; dW and the sums are f32.
 
 Each wrapper takes its plain version (``*_plain``) for CPU tensors and
-launches its kernel (``csrc/block_bwd.cu``; ``bn3_apply``'s in
-``csrc/bn_gemm_sm90.cu``; bf16 only) for CUDA tensors, or raises.
+launches its kernel for CUDA tensors (bf16 only), or raises: ``reduce3`` in
+``csrc/block_bwd.cu``, ``bn3_apply`` in ``csrc/bn_gemm_sm90.cu``,
+``conv2_bwd`` and ``bn1_apply`` in ``csrc/block_bwd_sm90.cu``; the three
+product kernels share two Hopper kernel bodies (``csrc/bn_gemm_sm90.cuh``).
 """
 
 from __future__ import annotations
@@ -58,18 +60,22 @@ __all__ = ["reduce3", "reduce3_plain", "bn3_apply", "bn3_apply_plain",
 _BF16 = torch.bfloat16
 _TILE = 128  # rows of one tile of the product kernels (channel sums)
 
-#: bn3_apply's dW3 kernel (csrc/bn_gemm_sm90.cu): a block owns 128 channels
-#: of C and a tile of cm (``_bn3_width``) and walks its rows of N in steps
-#: of 64
+#: the dW kernels of bn3_apply, conv2_bwd and bn1_apply
+#: (csrc/bn_gemm_sm90.cuh ``bn_dw_sm90``): a block owns 128 channels of the
+#: BN-backward operand and a tile of the other's columns, and walks its rows
+#: of N in steps of 64
 BN3_ROW_STEP = 64
 #: fewest rows a split range takes, so that a partial's write and read stay
 #: small against its product
 BN3_MIN_ROWS = 512
-#: longest range at the 256-wide cm tile, whose accumulators have no
-#: registers left for f32 totals (narrower tiles add theirs into totals
-#: every 128 rows): the tensor cores' f32 sums drift over long same-signed
-#: chains
+#: longest range at a 256-wide column tile (bn3_apply at cm > 128), whose
+#: accumulators have no registers left for f32 totals (narrower tiles add
+#: theirs into totals every 128 rows): the tensor cores' f32 sums drift over
+#: long same-signed chains
 BN3_MAX_UNFLUSHED_ROWS = 1024
+#: longest range of conv2_bwd's dW2 kernel: a block keeps one bit a row of
+#: its range in shared memory (the rows whose tap reads inside the image)
+CONV2_MAX_ROWS = 32768
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
@@ -186,37 +192,57 @@ def _kernel_operands(name, maps, vecs, weights):
     return ops, _build.load_library(), _build.stream_ptr(ops[0].device)
 
 
-def _splits(n: int, m: int, cols: int, sms: int = 132):
-    """(splits, rows per split) of conv2_bwd's and bn1_apply's dW
-    N-reduction into an (m, cols) output: enough 128x128 output tiles times
-    ranges to give every SM two blocks, with at least 1024 rows per range
-    (rows a multiple of the WMMA kernels' 32-row step)."""
-    tiles = -(-m // 128) * -(-cols // 128)
-    s = max(1, min(-(-2 * sms // tiles), n // 1024))
-    return s, -(-n // (s * 32)) * 32
-
-
 def _bn3_width(cm: int) -> int:
     """Columns of cm one bn3_apply block owns: 64, 128 or 256."""
     return 64 if cm <= 64 else 128 if cm <= 128 else 256
 
 
-def _bn3_plan(n: int, c: int, cm: int, sms: int = 132):
-    """(splits, rows): bn3_apply's dW3 kernel reduces N in ``splits``
-    contiguous ranges of ``rows`` rows each (a multiple of the 64-row step;
-    the last range may be short, none is empty), in parallel over grid z.
-    The ranges fill one wave of the card's SMs (one block per SM) with the
-    (C / 128) x (cm / width) output tiles, none is shorter than
-    BN3_MIN_ROWS unless N is, and at the 256-wide tile none is longer than
-    BN3_MAX_UNFLUSHED_ROWS."""
-    width = _bn3_width(cm)
-    tiles = -(-c // 128) * -(-cm // width)
+def _dw_width(cols: int) -> int:
+    """Columns of the non-BN operand (h1 of conv2_bwd, x of bn1_apply) one
+    block of their dW kernels owns: 64 or 128 (always flushed)."""
+    return 64 if cols <= 64 else 128
+
+
+def _dw_ranges(n: int, tiles: int, width: int, sms: int,
+               max_rows: int | None = None):
+    """(splits, rows): a dW kernel reduces N in ``splits`` contiguous
+    ranges of ``rows`` rows each (a multiple of the 64-row step; the last
+    range may be short, none is empty), in parallel over grid z. The ranges
+    fill one wave of the card's SMs (one block per SM) with the ``tiles``
+    output tiles, none is shorter than BN3_MIN_ROWS unless N is, at the
+    256-wide column tile none is longer than BN3_MAX_UNFLUSHED_ROWS, and
+    none is longer than ``max_rows``."""
     splits = max(1, min(sms // tiles, n // BN3_MIN_ROWS))
     rows = max(BN3_ROW_STEP,
                -(-n // (splits * BN3_ROW_STEP)) * BN3_ROW_STEP)
     if width == 256:
         rows = min(rows, BN3_MAX_UNFLUSHED_ROWS)
+    if max_rows is not None:
+        rows = min(rows, max_rows)
     return max(1, -(-n // rows)), rows
+
+
+def _bn3_plan(n: int, c: int, cm: int, sms: int = 132):
+    """bn3_apply's dW3 ranges (``_dw_ranges``) over its (C / 128) x
+    (cm / width) output tiles."""
+    width = _bn3_width(cm)
+    return _dw_ranges(n, -(-c // 128) * -(-cm // width), width, sms)
+
+
+def _conv2_plan(n: int, cm: int, sms: int = 132):
+    """conv2_bwd's dW2 ranges over its (cm_out / 128) x 9 taps x (cm_in /
+    width) output tiles (always flushed), none longer than
+    CONV2_MAX_ROWS."""
+    width = _dw_width(cm)
+    return _dw_ranges(n, -(-cm // 128) * 9 * -(-cm // width), width, sms,
+                      CONV2_MAX_ROWS)
+
+
+def _bn1_plan(n: int, cin: int, cm: int, sms: int = 132):
+    """bn1_apply's dW1 ranges over its (cm / 128) x (cin / width) output
+    tiles."""
+    width = _dw_width(cin)
+    return _dw_ranges(n, -(-cm // 128) * -(-cin // width), width, sms)
 
 
 def _f32(*shape, device):
@@ -306,14 +332,16 @@ def conv2_bwd(d2, a2, a1, w2, v2, v1f):
     d1 = torch.empty_like(a1)
     s1, dw2 = _f32(2, cm, device=dev), _f32(3, 3, cm, cm, device=dev)
     spart = _f32(max(1, -(-n // _TILE)), 2, cm, device=dev)
-    splits, rows = _splits(n, 9 * cm, cm)
+    splits, rows = _conv2_plan(n, cm)
     wpart = _f32(splits, 9 * cm, cm, device=dev) if splits > 1 else None
+    # da2 and h1 as bf16 rows, written once and read by both products
+    da2, h1 = torch.empty_like(d2), torch.empty_like(a1)
     _build.check(lib.ieee_block_conv2_bwd(
         d2.data_ptr(), a2.data_ptr(), a1.data_ptr(), w2.data_ptr(),
         v2.data_ptr(), v1f.data_ptr(), d1.data_ptr(), s1.data_ptr(),
         dw2.data_ptr(), spart.data_ptr(),
-        0 if wpart is None else wpart.data_ptr(), b, h, w, cm, splits, rows,
-        stream), "conv2_bwd")
+        0 if wpart is None else wpart.data_ptr(), da2.data_ptr(),
+        h1.data_ptr(), b, h, w, cm, splits, rows, stream), "conv2_bwd")
     LAUNCHES["conv2_bwd"] += 1
     return d1, s1, dw2
 
@@ -338,7 +366,7 @@ def bn1_apply(d1, a1, x, d3, w1, v1):
     dev = d1.device
     dx = torch.empty_like(x)
     dw1 = _f32(cin, cm, device=dev)
-    splits, rows = _splits(n, cin, cm)
+    splits, rows = _bn1_plan(n, cin, cm)
     wpart = _f32(splits, cin, cm, device=dev) if splits > 1 else None
     _build.check(lib.ieee_block_bn1_apply(
         d1.data_ptr(), a1.data_ptr(), x.data_ptr(), d3.data_ptr(),

@@ -357,7 +357,20 @@ def test_bn3_apply_kernel_matches_plain(cuda, b, h, w, c, cm):
     _sums_close(dw3, want_dw3, h2.abs().t() @ da3.abs(), "dW3")
 
 
-@pytest.mark.parametrize("b,h,w,c,cm", BLOCK_SHAPES)
+# conv2_bwd and bn1_apply also at layer2 and layer3 of a batch-128 step,
+# at cm of 8 and 24 (C of 32 and 96), and at images that do not tile the
+# 128-row tiles evenly: W = 3, 5 and 7 with H*W < 64 and several images in
+# one tile, H = 1 (every vertical tap leaves the image) and W = 1 (every
+# horizontal one), where a shifted row inside [0, N) lands in a
+# neighbouring image row or image and must read zero
+CONV2_SHAPES = BLOCK_SHAPES + [(128, 32, 16, 512, 128),
+                               (128, 16, 8, 1024, 256), (3, 16, 8, 32, 8),
+                               (5, 7, 3, 96, 24), (12, 3, 5, 64, 8),
+                               (10, 5, 7, 32, 24), (40, 1, 7, 32, 16),
+                               (20, 9, 1, 32, 8)]
+
+
+@pytest.mark.parametrize("b,h,w,c,cm", CONV2_SHAPES)
 def test_conv2_bwd_kernel_matches_plain(cuda, b, h, w, c, cm):
     m, v, wt = _block_inputs(b, h, w, c, cm, cuda)
     args = (m["d2"], m["a2"], m["a1"], wt["w2"], v["v2"], v["v1f"])
@@ -381,7 +394,7 @@ def test_conv2_bwd_kernel_matches_plain(cuda, b, h, w, c, cm):
     _sums_close(dw2, want_dw2, bound, "dW2")
 
 
-@pytest.mark.parametrize("b,h,w,c,cm", BLOCK_SHAPES)
+@pytest.mark.parametrize("b,h,w,c,cm", CONV2_SHAPES)
 def test_bn1_apply_kernel_matches_plain(cuda, b, h, w, c, cm):
     m, v, wt = _block_inputs(b, h, w, c, cm, cuda)
     args = (m["d1"], m["a1"], m["x"], m["d3"], wt["w1"], v["v1"])

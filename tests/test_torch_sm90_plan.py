@@ -1,5 +1,6 @@
 """The pure-Python planning around the Hopper kernels (``csrc/mm_bn_bwd.cu``,
-``csrc/bn_gemm_sm90.cu``): the dW kernels' splits of N into row ranges,
+``csrc/bn_gemm_sm90.cu``, ``csrc/block_bwd_sm90.cu``): the dW kernels'
+splits of N into row ranges,
 and the parsing of ``nvcc -Xptxas -v`` output that ``chip_smoke.py``
 prints. All run on the CPU in milliseconds; the kernels themselves are
 held to their plain versions on the card in
@@ -13,8 +14,12 @@ from ieee_tpu_torch.ops.kernels.block_bwd import (
     BN3_MAX_UNFLUSHED_ROWS,
     BN3_MIN_ROWS,
     BN3_ROW_STEP,
+    CONV2_MAX_ROWS,
+    _bn1_plan,
     _bn3_plan,
     _bn3_width,
+    _conv2_plan,
+    _dw_width,
 )
 from ieee_tpu_torch.ops.kernels.matmul_bn import (
     DW_MIN_ROWS,
@@ -86,6 +91,70 @@ def test_bn3_plan_at_the_block_path_stages():
     # layer3: 8 tiles of 128 x 256, 16 ranges of 1024 rows
     assert _bn3_width(256) == _bn3_width(512) == 256
     assert _bn3_plan(16384, 1024, 256, sms=SMS) == (16, 1024)
+
+
+# (N, cm): conv2_bwd at layer1-3 of a batch-128 step, width 512, the card
+# tests' smaller and odd maps, cm of 8 and 24, and a large ragged N
+CONV2_CASES = [(262144, 64), (65536, 128), (16384, 256), (16384, 512),
+               (4096, 128), (2048, 256), (384, 64), (105, 16), (384, 8),
+               (105, 24), (63, 8), (350, 24), (280, 16), (180, 8), (1, 8),
+               (200000, 192)]
+
+
+def _check_ranges(n, splits, rows, tiles, width, max_rows=None):
+    assert splits >= 1 and rows % BN3_ROW_STEP == 0
+    # the ranges cover N exactly: none empty, the last may be short
+    assert (splits - 1) * rows < n <= splits * rows
+    # one wave of blocks, unless the output tiles alone exceed it or the
+    # cap on a range's rows forces more ranges
+    if max_rows is None or rows < max_rows:
+        assert tiles * splits <= max(SMS, tiles)
+    if splits > 1:
+        assert rows >= BN3_MIN_ROWS
+    # at most 128 columns a block: f32 totals flushed every 128 rows, so
+    # the ranges need no cap for the drift
+    assert width <= 128
+    if max_rows is not None:
+        assert rows <= max_rows
+
+
+@pytest.mark.parametrize("n,cm", CONV2_CASES)
+def test_conv2_plan_covers_n_in_whole_steps_and_fits_one_wave(n, cm):
+    splits, rows = _conv2_plan(n, cm, sms=SMS)
+    width = _dw_width(cm)
+    tiles = -(-cm // 128) * 9 * -(-cm // width)  # c tiles x taps x columns
+    # the kernel keeps a bit a row of a range in shared memory
+    _check_ranges(n, splits, rows, tiles, width, CONV2_MAX_ROWS)
+
+
+# (N, cin, cm): bn1_apply at the same maps, cin = 4 cm as in the trunks,
+# and cin of 32 and 96 with cm of 8 and 24
+@pytest.mark.parametrize("n,cin,cm", [
+    (262144, 256, 64), (65536, 512, 128), (16384, 1024, 256),
+    (16384, 2048, 512), (4096, 512, 128), (2048, 1024, 256), (384, 256, 64),
+    (105, 64, 16), (384, 32, 8), (105, 96, 24), (350, 32, 24), (1, 32, 8),
+    (200000, 768, 192)])
+def test_bn1_plan_covers_n_in_whole_steps_and_fits_one_wave(n, cin, cm):
+    splits, rows = _bn1_plan(n, cin, cm, sms=SMS)
+    width = _dw_width(cin)
+    tiles = -(-cm // 128) * -(-cin // width)
+    _check_ranges(n, splits, rows, tiles, width)
+
+
+def test_conv2_and_bn1_plans_at_the_block_path_stages():
+    # conv2_bwd, layer1: 9 taps x one 128 x 64 tile: 14 ranges of 18752
+    # rows (126 blocks); layer2: 9 taps x one 128 x 128 tile, the same;
+    # layer3: 2 c tiles x 9 taps x 2 column tiles of 128: 3 ranges
+    assert _dw_width(64) == 64 and _dw_width(256) == 128
+    assert _conv2_plan(262144, 64, sms=SMS) == (14, 18752)
+    assert _conv2_plan(65536, 128, sms=SMS) == (14, 4736)
+    assert _conv2_plan(16384, 256, sms=SMS) == (3, 5504)
+    # bn1_apply, layer1: one c tile x 2 cin tiles of 128: 66 ranges;
+    # layer2: 4 cin tiles, 32 ranges of 2048 rows (the 64-row step rounds
+    # 33 up); layer3: 2 x 8 tiles, 8 ranges of 2048
+    assert _bn1_plan(262144, 256, 64, sms=SMS) == (66, 4032)
+    assert _bn1_plan(65536, 512, 128, sms=SMS) == (32, 2048)
+    assert _bn1_plan(16384, 1024, 256, sms=SMS) == (8, 2048)
 
 
 LOG = """== mm_bn_bwd.cu

@@ -16,7 +16,8 @@ import pytest
 import torch
 
 TOOLS = ("bw_probe", "bw_probe2", "fusion_probe", "roofline_probe",
-         "profile_train", "eval_bench", "eval_fwd_bench", "loader_bench")
+         "profile_train", "eval_bench", "eval_fwd_bench", "loader_bench",
+         "block_bench")
 
 
 def _tool(name):
@@ -148,3 +149,13 @@ def test_loader_bench_main(capsys):
         _tool("loader_bench").main(small + ["--step-rate", "1e9"])
     assert exc.value.code == 1
     assert "-> STARVED" in capsys.readouterr().out
+
+
+def test_block_bench(capsys):
+    # the three block kernels' plain versions at every stage, one image
+    totals = _tool("block_bench").bench("cpu", batch=1, iters=1)
+    assert set(totals) == {"conv2_bwd", "bn1_apply", "bn3_apply"}
+    assert _finite_ms(totals)
+    out = capsys.readouterr().out
+    assert out.count("ms per call queued") == 9
+    assert "per step (30 blocks), queued:" in out
