@@ -9,7 +9,8 @@ Phases (any failure raises and exits non-zero):
 1. The card's name and power limit; the kernels' build (``nvcc`` for
    ``sm_90a``, one process per source) and its time, each kernel's
    registers, and the registers, spills and ptxas warnings of each
-   instance of the Hopper kernels (``csrc/mm_bn_bwd.cu``,
+   instance of the Hopper kernels (``csrc/mm_bn_train.cu`` and
+   ``csrc/mm_affine.cu`` on ``csrc/mm_sm90.cuh``, ``csrc/mm_bn_bwd.cu``,
    ``csrc/bn_gemm_sm90.cu``, ``csrc/block_bwd_sm90.cu``; names demangled
    where ``c++filt`` is found), spilling instances named once more, and
    each distinct ptxas performance note with its count.
@@ -18,18 +19,23 @@ Phases (any failure raises and exits non-zero):
    median time of each over repeated launches (CUDA events), the time of
    the PyTorch library call that computes the same product, and the
    least time the card could take (bytes over 3.35 TB/s or operations over
-   the type's peak, whichever is larger). The train kernels run at the 33
-   fused sites of one train step at batch 128 (layer4, CIM, reduce), the
-   CIM site at batch 8, the reduce site at N = 8 and 48, and a ragged N,
-   ``mm_bn_da`` and ``mm_bn_dw`` each twice (bit for bit), with a table of
-   their times per site class of the step beside the library call and the
-   bound; then the whole ``mm_bn_act_train`` op, forward and backward,
-   against its plain version. The four block kernels run at the three stages the
-   block path takes in a batch-128 step (layer1-3: 6, 9 and 15 blocks per
-   step over the three trunks), at layer4's width 512 and at a ragged
-   batch, the three product kernels (``bn3_apply``, ``conv2_bwd``,
-   ``bn1_apply``) also with 10 calls queued, with a table of their times
-   per stage and their per-step lines; then the whole
+   the type's peak, whichever is larger). ``mm_affine`` runs at the 21
+   layer4 sites of an eval batch of 100 (7 per trunk), the CIM and reduce
+   shapes, a ragged N and a ragged N, K and C, each twice (bit for bit),
+   the batch's sites also with 10 calls queued, with a table of its times
+   per site class of the batch and its per-trunk line. The train kernels
+   run at the 33 fused sites of one train step at batch 128 (layer4, CIM,
+   reduce), the CIM site at batch 8, the reduce site at N = 8 and 48, a
+   ragged N and a ragged N, K and C, each twice (bit for bit), the step's
+   sites also queued, with a table of each one's times per site class of
+   the step beside the library call and the bound and ``mm_stats``'s
+   per-step line; then the whole ``mm_bn_act_train`` op, forward and
+   backward, against its plain version. The four block kernels run at the
+   three stages the block path takes in a batch-128 step (layer1-3: 6, 9
+   and 15 blocks per step over the three trunks), at layer4's width 512
+   and at a ragged batch, the three product kernels (``bn3_apply``,
+   ``conv2_bwd``, ``bn1_apply``) also with 10 calls queued, with a table
+   of their times per stage and their per-step lines; then the whole
    ``bottleneck_train`` op against ``plain=True``.
    The probes' kernels run at the tools' shapes: ``scale_bf16`` on an
    (8192, 8192) bf16 array at both tile heights and a ragged one (bit for
@@ -56,7 +62,8 @@ Phases (any failure raises and exits non-zero):
    (kernels, 33 launches of each train kernel per step), fused+block (the
    same with ``block_megakernel``: also 30 launches of each block kernel)
    and plain: train triplets/s, peak device memory and a
-   ``torch.profiler`` summary by kernel (fused+block: also the device ms
+   ``torch.profiler`` summary by kernel (both fused paths: also the
+   ``mm_stats`` kernel's device ms by name; fused+block: the device ms
    of the product kernels of each of ``bn3_apply``, ``conv2_bwd`` (with its
    operand pass) and ``bn1_apply``); and the first step of each kernel
    path, from the same weights and batch, must agree with the plain one
@@ -67,8 +74,9 @@ Phases (any failure raises and exits non-zero):
    just after: ``bw_probe`` must launch ``scale_bf16``, ``fusion_probe``
    ``mm_stats`` and ``bn_mm``, ``profile_train`` the train kernels (33 per
    step), ``eval_bench`` the distmat, ``eval_fwd_bench`` partpool and
-   mm_affine, ``block_bench`` the three block product kernels. They print
-   the bandwidth and matmul rates the card reaches.
+   mm_affine, ``block_bench`` the three block product kernels,
+   ``mm_bench`` the four 1x1 kernels. They print the bandwidth and matmul
+   rates the card reaches.
 
 Each phase prints its seconds, and the run its total. The line before the
 last is the JSON list of kernels; the last line is ``{"ok": true,
@@ -134,7 +142,9 @@ TOOLS = (("bw_probe", [], ("scale_bf16",)),
          ("eval_bench", [], ("distmat",)),
          ("eval_fwd_bench", [], ("partpool", "mm_affine")),
          ("loader_bench", [], ()),
-         ("block_bench", [], ("conv2_bwd", "bn1_apply", "bn3_apply")))
+         ("block_bench", [], ("conv2_bwd", "bn1_apply", "bn3_apply")),
+         ("mm_bench", ["--iters", "3"], ("mm_stats", "mm_affine",
+                                        "mm_bn_da", "mm_bn_dw")))
 # blocks on the block path per train step (10 per trunk, 3 trunks)
 BLOCKS_PER_STEP = 30
 # least cosine between a fused and a plain step's gradient tensor (phase
@@ -143,21 +153,25 @@ BLOCKS_PER_STEP = 30
 # step is printed beside it)
 GRAD_COS = 0.8
 
-# the fused 1x1 sites of one train step at batch 128 (N = 128*16*8 rows at
-# the 16x8 layer4 map): (N, K, C, relu, sites per step)
-TRAIN_SITES = (
-    (16384, 1024, 512, True, 3),    # layer4.0 cb1, 3 trunks
-    (16384, 512, 2048, False, 9),   # layer4.* cb3 (+ identity)
-    (16384, 1024, 2048, False, 3),  # layer4.0 downsample
-    (16384, 2048, 512, True, 6),    # layer4.1-2 cb1
-    (16384, 2048, 2048, True, 6),   # CIM convOne, convAvgRest
-    (128, 2048, 768, True, 3),      # reduce, global rows
-    (768, 2048, 768, True, 3),      # reduce, part rows (B*6)
-)
+# the fused 1x1 sites of one train step at batch 128 and of an eval batch
+# of 100 (N, K, C, relu, sites) are TRAIN_SITES and EVAL_SITES of
+# ieee_tpu_torch/ops/kernels/matmul_bn.py
 # checked but outside the per-step sums: CIM and reduce at the config's
-# batch 8, and a ragged N
+# batch 8, a ragged N, and a ragged N, K and C (off the forward kernels'
+# 128-row tile, 64-deep step and 256-wide tile)
 TRAIN_EXTRA = ((1024, 2048, 2048, True, 0), (8, 2048, 768, True, 0),
-               (48, 2048, 768, True, 0), (1037, 1024, 2048, False, 0))
+               (48, 2048, 768, True, 0), (1037, 1024, 2048, False, 0),
+               (1037, 264, 264, True, 0))
+# checked but outside the per-batch sums: the CIM and reduce shapes; the
+# layer4 cb1 sites of phase 3's CLI eval (query and gallery batches of 16
+# and 32 images: N = 2048 and 4096, the 64- and 128-wide tiles); CIM and
+# reduce at the config's batch 8; a ragged N, and a ragged N, K and C
+EVAL_EXTRA = ((12800, 2048, 2048, True, 0), (600, 2048, 768, True, 0),
+              (4096, 1024, 512, True, 0), (4096, 2048, 512, True, 0),
+              (2048, 1024, 512, True, 0), (2048, 2048, 512, True, 0),
+              (1024, 2048, 2048, True, 0), (8, 2048, 768, True, 0),
+              (48, 2048, 768, True, 0), (1037, 2048, 768, True, 0),
+              (129, 40, 264, False, 0))
 # the block path's stages in one train step at batch 128 (256x128 input):
 # (B, H, W, C, cm, blocks per step over the three trunks)
 BLOCK_SITES = ((128, 64, 32, 256, 64, 6),    # layer1.1-2
@@ -208,7 +222,7 @@ def check_kernels(results):
     from ieee_tpu_torch.ops.kernels.distmat import (
         euclidean_sq, euclidean_sq_plain)
     from ieee_tpu_torch.ops.kernels.matmul_bn import (
-        mm_affine_act, mm_affine_act_plain)
+        EVAL_SITES, mm_affine_act, mm_affine_act_plain)
     from ieee_tpu_torch.ops.kernels.partpool import (
         fused_partpool_project, fused_partpool_project_plain)
 
@@ -283,22 +297,20 @@ def check_kernels(results):
                lambda: fused_partpool_project_plain(x, w, s, t, 6), None,
                bound_ms(flops, nbytes, "bf16"), weight=int(i == 0))
 
-    # mm_affine: layer4's seven sites per trunk at batch 100 (16x8 map),
-    # CIM and reduce (plain-head sites) and a ragged N; bf16 outputs may
-    # differ by one bf16 step (2^-7 relative allowed) where f32 sums
-    # differ. Library call: the bf16 torch.matmul of the same operands
-    n = 100 * 16 * 8
-    per_trunk = {(1024, 512): 1, (512, 2048): 3, (1024, 2048): 1,
-                 (2048, 512): 2}
-    for rows, k, c, relu in ((n, 1024, 512, True), (n, 512, 2048, False),
-                             (n, 1024, 2048, False), (n, 2048, 512, True),
-                             (n, 2048, 2048, True), (600, 2048, 768, True),
-                             (1037, 2048, 768, True)):
+    # mm_affine: layer4's sites of an eval batch of 100 (16x8 map) and
+    # EVAL_EXTRA's, each twice (bit for bit); bf16 outputs may differ by
+    # one bf16 step (2^-7 relative allowed) where f32 sums differ. Library
+    # call: the bf16 torch.matmul of the same operands. The weight counts a
+    # case per trunk (7 calls), the site table per batch (x3)
+    for rows, k, c, relu, sites in EVAL_SITES + EVAL_EXTRA:
         a = randn((rows, k), 7).to(torch.bfloat16)
         w = randn((k, c), 8, k ** -0.5)
         w16 = w.to(torch.bfloat16)
         inv, shift = randn((c,), 9).abs() + 0.5, randn((c,), 10)
         got = mm_affine_act(a, w, inv, shift, relu).float()
+        again = mm_affine_act(a, w, inv, shift, relu).float()
+        if not torch.equal(got, again):
+            raise AssertionError(f"mm_affine {[rows, k, c]}: two runs differ")
         want = mm_affine_act_plain(a, w, inv, shift, relu).float()
         torch.cuda.synchronize()
         record("mm_affine", [rows, k, c, relu], got, want,
@@ -309,7 +321,10 @@ def check_kernels(results):
                bound_ms(2.0 * rows * k * c,
                         2.0 * (rows * k + k * c + rows * c) + 8.0 * c,
                         "bf16"),
-               weight=per_trunk.get((k, c), 0) if rows == n else 0)
+               weight=sites // 3, queued=bool(sites))
+    check_widths("mm_affine", EVAL_SITES + EVAL_EXTRA)
+    site_table(results, "mm_affine", "batch", 3)
+    unit_line(results, "mm_affine", "trunk (7 layer4 calls)")
 
     check_train_kernels(record, results)
     check_probe_kernels(record)
@@ -324,8 +339,8 @@ def check_train_kernels(record, results):
     import torch
 
     from ieee_tpu_torch.ops.kernels.matmul_bn import (
-        dy_plain, mm_bn_da, mm_bn_da_plain, mm_bn_dw, mm_bn_dw_plain,
-        mm_stats, mm_stats_plain)
+        TRAIN_SITES, dy_plain, mm_bn_da, mm_bn_da_plain, mm_bn_dw,
+        mm_bn_dw_plain, mm_stats, mm_stats_plain)
 
     for n, k, c, relu, sites in TRAIN_SITES + TRAIN_EXTRA:
         iters = 10 if n >= 16384 else 20
@@ -343,8 +358,13 @@ def check_train_kernels(record, results):
         # mm_stats: y one bf16 step (+1e-5 of the largest |y| where the f32
         # sums differ near zero); sums 1e-5 of sum|y| and sum y^2
         got_y, got_st = mm_stats(a, w)
+        again = mm_stats(a, w)
         want_y, want_st = mm_stats_plain(a, w)
         torch.cuda.synchronize()
+        if not (torch.equal(got_y, again[0])
+                and torch.equal(got_st, again[1])):
+            raise AssertionError(f"mm_stats {shape}: two runs differ")
+        del again
         y32 = a.float() @ w16.float()
         st_tol = 1e-5 * torch.stack([y32.abs().sum(0), (y32 * y32).sum(0)])
         if not bool(((got_st - want_st).abs() <= st_tol).all()):
@@ -357,7 +377,8 @@ def check_train_kernels(record, results):
                lambda: mm_stats(a, w), lambda: mm_stats_plain(a, w),
                lambda: torch.matmul(a, w16),
                bound_ms(flops, 2.0 * (n * k + k * c + n * c) + 8.0 * c,
-                        "bf16"), weight=sites, iters=iters)
+                        "bf16"), weight=sites, iters=iters,
+               queued=bool(sites))
 
         # mm_bn_da: dy is bit-identical; one bf16 step + 1e-5 sum|dy||w|
         dy = dy_plain(d, y, vecs, relu)
@@ -390,7 +411,10 @@ def check_train_kernels(record, results):
                         + 4.0 * k * c, "bf16"), weight=sites, iters=iters,
                queued=True)
         del a, w, w16, d, y, dy, got, want, tol
-    site_table(results)
+    check_widths("mm_stats", TRAIN_SITES + TRAIN_EXTRA)
+    for name in TRAIN_KERNELS:
+        site_table(results, name, "step", 1)
+    unit_line(results, "mm_stats", "train step (33 sites)")
     check_train_op()
     check_block_kernels(record)
     stage_table(results)
@@ -399,32 +423,49 @@ def check_train_kernels(record, results):
     check_block_op()
 
 
-def site_table(results):
-    """Phase 2: mm_bn_da and mm_bn_dw per site class (N, K, C) of one
-    batch-128 train step: ms per call and per step (x sites), the library
-    call and the bound, so the launch-bound reduce sites and the
-    tensor-core-bound layer4/CIM sites read apart. "kernel" times one
+def check_widths(name, shapes):
+    """Phase 2: the column tiles (``_mm_plan``) that ``name``'s checked
+    shapes ran at must include every width of its kernel."""
+    import torch
+
+    from ieee_tpu_torch.ops.kernels.matmul_bn import (
+        MM_WIDTHS, _mm_plan, _sm_count)
+
+    sms = _sm_count(torch.cuda.current_device())
+    seen = sorted({_mm_plan(n, c, sms) for n, _, c, _, _ in shapes})
+    print(f"{name}: checked at column tiles {seen} of {list(MM_WIDTHS)}")
+    if set(seen) != set(MM_WIDTHS):
+        raise AssertionError(f"{name}: no case at column tile "
+                             f"{sorted(set(MM_WIDTHS) - set(seen))}")
+
+
+def site_table(results, name, unit, per_weight):
+    """Phase 2: a 1x1 kernel per site class (N, K, C) of its unit (a
+    batch-128 train step, or an eval batch of 100): ms per call and per
+    unit (x sites, ``per_weight`` sites for each unit of a case's weight),
+    the library call and the bound, so the launch-bound reduce sites and
+    the tensor-core-bound layer4/CIM sites read apart. "kernel" times one
     wrapper call between two events, as every row of the kernel line;
     "queued" 10 calls back to back, per call."""
-    for name in ("mm_bn_da", "mm_bn_dw"):
-        print(f"site classes of {name} (ms per call; per step = x sites):")
-        totals = [0.0, 0.0]
-        for case in results[name]["cases"]:
-            if not case["weight"]:
-                continue
-            n, k, c, _ = case["shape"]
-            lib = case["library_ms"]
-            w = case["weight"]
-            totals[0] += w * case["ms"]
-            totals[1] += w * case["queued_ms"]
-            print(f"  N {n:5d} K {k:4d} C {c:4d} x{w}: kernel "
-                  f"{case['ms']:.4f} queued {case['queued_ms']:.4f} library "
-                  f"{lib:.4f} bound {case['bound_ms']:.4f} "
-                  f"({case['ms'] / lib:.2f}x library, "
-                  f"{case['ms'] / case['bound_ms']:.2f}x bound); per step "
-                  f"{w * case['ms']:.4f} ms")
-        print(f"  per step: kernel {totals[0]:.4f} ms, queued "
-              f"{totals[1]:.4f} ms")
+    print(f"site classes of {name} (ms per call; per {unit} = x sites):")
+    totals = [0.0, 0.0]
+    for case in results[name]["cases"]:
+        if not case["weight"]:
+            continue
+        n, k, c, _ = case["shape"]
+        lib = case["library_ms"]
+        w = case["weight"] * per_weight
+        totals[0] += w * case["ms"]
+        totals[1] += w * case["queued_ms"]
+        print(f"  N {n:5d} K {k:4d} C {c:4d} x{w}: kernel "
+              f"{case['ms']:.4f} queued {case['queued_ms']:.4f} library "
+              f"{lib:.4f} bound {case['bound_ms']:.4f} "
+              f"({case['ms'] / lib:.2f}x library, "
+              f"{case['queued_ms'] / lib:.2f}x queued, "
+              f"{case['ms'] / case['bound_ms']:.2f}x bound); per {unit} "
+              f"{w * case['ms']:.4f} ms")
+    print(f"  per {unit}: kernel {totals[0]:.4f} ms, queued "
+          f"{totals[1]:.4f} ms")
 
 
 def stage_table(results):
@@ -1064,6 +1105,12 @@ def engine_train():
               f"per step, busy {busy:.3f}")
         for key, cnt, ms in rows[:12]:
             print(f"  {ms:8.3f} ms/step {cnt:4d}x {key[:70]}")
+        if fused:  # the mm_stats kernel's instances, by name
+            for key, cnt, ms in rows:
+                if "mm_stats" in key:
+                    short = key.replace("(anonymous namespace)::", "")
+                    print(f"  mm_stats: {ms:.3f} device ms/step over {cnt} "
+                          f"launches of {short.split('(')[0]}")
         if block:  # each block kernel's products (not its sum kernels)
             for kname, keys in BLOCK_PRODUCTS:
                 prods = [(cnt, ms) for key, cnt, ms in rows

@@ -23,7 +23,7 @@
 // agree bit for bit. Channel counts must be multiples of 8 (the wrapper
 // checks); any N runs.
 
-#include "wmma_tile.cuh"  // unpack8, pack8, load_vec8, stats_reduce_kernel
+#include "vec8_sums.cuh"  // unpack8, pack8, load_vec8, stats_reduce_kernel
 
 namespace {
 

@@ -57,11 +57,10 @@ constexpr uint32_t MM_Y = 32768;  // y (128 N rows x 64 K)
 constexpr uint32_t MM_V = 49152;  // [inv, sh] (2 x 64 K) f32
 constexpr uint32_t MM_TX = 49152 + 2 * 64 * 4;  // bytes landing per stage
 constexpr uint32_t MM_STAGE = 50176;
-constexpr int MM_PITCH = 256 + 8;  // epilogue bf16 row pitch (no conflicts)
 using MmRing = sm90::Ring<MM_STAGES>;
 constexpr int MM_SMEM =
     MM_STAGES * MM_STAGE + MmRing::kBarrierBytes + 1024;
-static_assert(kRows * MM_PITCH * 2 <= MM_STAGES * MM_STAGE,
+static_assert(kRows * sm90::rows_pitch(4) * 2 <= MM_STAGES * MM_STAGE,
               "the bn_mm epilogue reuses the stage ring");
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -145,26 +144,12 @@ bn_mm_sm90(const __grid_constant__ CUtensorMap tm_y,
     if (lane == 0) sm90::mbar_arrive(ring.empty_bar(slot));
   }
 
-  // epilogue: bf16 pairs into a shared (128 x 256) tile, then 16-byte rows
-  // of o. Both consumers are done with the ring, and every stage issued was
-  // waited for, so no copy still lands in it
+  // epilogue: o's bf16 rows through a shared (128 x 256) tile. Both
+  // consumers are done with the ring, and every stage issued was waited
+  // for, so no copy still lands in it
   sm90::named_sync(1, kConsumers);
-  uint32_t* tile = reinterpret_cast<uint32_t*>(sm.ptr);
-  const int tr = wg * 64 + warp * 16 + (lane >> 2);
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    tile[(tr * MM_PITCH + 8 * i + 2 * q) / 2] =
-        pack_bf16(acc[4 * i], acc[4 * i + 1]);
-    tile[((tr + 8) * MM_PITCH + 8 * i + 2 * q) / 2] =
-        pack_bf16(acc[4 * i + 2], acc[4 * i + 3]);
-  }
-  sm90::named_sync(1, kConsumers);
-  for (int u = tid; u < kRows * 32; u += kConsumers) {
-    const int r = u >> 5, ch = (u & 31) * 8;
-    if (row0 + r < n && col0 + ch < c)
-      *reinterpret_cast<uint4*>(out + (size_t)(row0 + r) * c + col0 + ch) =
-          *reinterpret_cast<const uint4*>(sm.ptr + r * MM_PITCH * 2 + ch * 2);
-  }
+  sm90::store_rows<4>(acc, [](float v, int) { return v; }, sm.ptr, out, row0,
+                      col0, n, c);
 }
 
 }  // namespace

@@ -83,23 +83,26 @@
 #include <algorithm>
 
 #include "sm90_gemm.cuh"
-#include "wmma_tile.cuh"  // stats_reduce_kernel, split_reduce_kernel
+#include "vec8_sums.cuh"  // stats_reduce_kernel, split_reduce_kernel
 
 namespace {
 
+using sm90::aligned_smem;
 using sm90::bf16_hi;
 using sm90::bf16_lo;
 using sm90::desc_sw128;
 using sm90::pack_bf16;
+using sm90::Smem;
 using sm90::sw128;
 
-constexpr int kConsumers = 256;             // two warpgroups
-constexpr int kThreads = kConsumers + 128;  // and the producer warpgroup
-constexpr int kProducerRegs = 56;
-constexpr int kConsumerRegs = 224;  // 128*56 + 256*224 <= 65536
-constexpr int kBK = 64;             // reduction step: one 128-byte row
-constexpr int kRows = 128;          // rows of a tile (two m64)
-constexpr int kPitch = kRows + 4;   // dW epilogue f32 row pitch
+using sm90::kBK;
+using sm90::kConsumerRegs;
+using sm90::kConsumers;
+using sm90::kProducerRegs;
+using sm90::kRows;
+using sm90::kThreads;
+
+constexpr int kPitch = kRows + 4;  // dW epilogue f32 row pitch
 
 // the products the two bodies serve (the header's comment states them)
 struct Bn3Op {
@@ -158,19 +161,6 @@ __device__ __forceinline__ uint32_t tap_mask(int r, int h, int w, int sign) {
       if (yy >= 0 && yy < h && xx >= 0 && xx < w) m |= 1u << (3 * ky + kx);
     }
   return m;
-}
-
-// the dynamic shared memory base aligned up to 1024 bytes (the swizzle's
-// atom), as a shared address and a generic pointer
-struct Smem {
-  uint32_t base;
-  uint8_t* ptr;
-};
-
-__device__ __forceinline__ Smem aligned_smem(uint8_t* raw_ptr) {
-  const uint32_t raw = sm90::smem_u32(raw_ptr);
-  const uint32_t base = (raw + 1023u) & ~1023u;
-  return {base, raw_ptr + (base - raw)};
 }
 
 __host__ inline int sm_count() {

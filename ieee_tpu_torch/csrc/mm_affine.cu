@@ -6,160 +6,98 @@
 // f32 accumulator, the result stored as bf16. A residual, when the caller has
 // one, is added outside (models/common.py), exactly as in the JAX package.
 //
-// What bounds it on an H100: the tensor cores. At the layer4 sites of the
-// 256x128 eval (N = 100*16*8 = 12800 rows, K in {512, 1024, 2048}, C in
-// {512, 2048}) the arithmetic intensity is 2*N*K*C / (2*(N*K + K*C + N*C))
-// = 300-700 flop/byte, at or above the bf16 ridge of ~295.
-//
-// Design (simple first): one block of 256 threads (8 warps, 2 x 4) owns a
-// 128x128 output tile; each warp owns 64x32 of it as 4x2 WMMA 16x16x16 bf16
-// fragments with f32 accumulators. K is walked in steps of 32 through padded
-// shared-memory tiles loaded with 16-byte vectors (rows padded by 8 elements
-// so WMMA's strided fragment loads spread over the banks). The epilogue goes
-// fragment by fragment through a 1 KB per-warp scratch, applies the folded BN
-// and ReLU in f32 and writes 8 bf16 per lane. Rows past N and columns past C
-// are masked, so any N runs; K and C must be multiples of 8 (the wrapper
-// checks). Loads are synchronous: cp.async/TMA pipelining and wgmma are later
-// work.
+// What bounds it and the mainloop: mm_sm90.cuh (at the layer4 sites of the
+// 256x128 eval, N = 100*16*8 = 12800 rows, the tensor cores). The
+// epilogue applies the block's 64 NB inv and shift values (staged in
+// shared memory before the mainloop) to the f32 accumulator, each product
+// and sum rounded on its own (no FMA contraction) as the plain version
+// rounds them, then the ReLU, and rounds once to bf16.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-
-#include <cstdint>
+#include "mm_sm90.cuh"
 
 namespace {
 
-using namespace nvcuda;
+// block (x, y) owns rows [128 y, +128) and columns [64 NB x, +64 NB) of
+// out (n, c) bf16
+template <int NB>
+__global__ void __launch_bounds__(kThreads, 1)
+mm_affine_sm90(const __grid_constant__ CUtensorMap tm_a,
+               const __grid_constant__ CUtensorMap tm_w,
+               const float* __restrict__ inv, const float* __restrict__ shift,
+               __nv_bfloat16* __restrict__ out, int n, int k, int c,
+               int relu) {
+  using L = MmTile<NB>;
+  extern __shared__ uint8_t smem_raw[];
+  const sm90::Smem sm = sm90::aligned_smem(smem_raw);
+  const typename L::Ring ring(sm.base, L::STAGE);
+  ring.init(kConsumers / 32);
 
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 32;
-constexpr int PAD = 8;
-constexpr int THREADS = 256;
-constexpr int WARPS_N = 4;   // warp grid 2 (rows) x 4 (cols)
-constexpr int WM = 64;       // rows per warp
-constexpr int WN = 32;       // cols per warp
-constexpr int FM = WM / 16;  // 4 fragments down
-constexpr int FN = WN / 16;  // 2 fragments across
-
-__global__ void __launch_bounds__(THREADS)
-mm_affine_kernel(const __nv_bfloat16* __restrict__ a,
-                 const __nv_bfloat16* __restrict__ w,
-                 const float* __restrict__ inv, const float* __restrict__ shift,
-                 __nv_bfloat16* __restrict__ out, int n, int k, int c,
-                 int relu) {
-  __shared__ __align__(128) __nv_bfloat16 as[BM][BK + PAD];
-  __shared__ __align__(128) __nv_bfloat16 ws[BK][BN + PAD];
-  __shared__ __align__(128) float scratch[THREADS / 32][16 * 16];
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int wm = warp / WARPS_N;
-  const int wn = warp % WARPS_N;
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int k0 = 0; k0 < k; k0 += BK) {
-    // A tile: 128 rows x 32 cols = 512 vectors of 8 bf16, 2 per thread
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int v = tid + e * THREADS;
-      const int r = v / (BK / 8);
-      const int cv = (v % (BK / 8)) * 8;
-      const int gr = row0 + r;
-      const int gk = k0 + cv;
-      uint4 val = zero;
-      if (gr < n && gk < k)
-        val = *reinterpret_cast<const uint4*>(a + (size_t)gr * k + gk);
-      *reinterpret_cast<uint4*>(&as[r][cv]) = val;
-    }
-    // W tile: 32 rows x 128 cols = 512 vectors, 2 per thread
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int v = tid + e * THREADS;
-      const int r = v / (BN / 8);
-      const int cv = (v % (BN / 8)) * 8;
-      const int gk = k0 + r;
-      const int gc = col0 + cv;
-      uint4 val = zero;
-      if (gk < k && gc < c)
-        val = *reinterpret_cast<const uint4*>(w + (size_t)gk * c + gc);
-      *reinterpret_cast<uint4*>(&ws[r][cv]) = val;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major>
-          fa[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major>
-          fb[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(fa[i], &as[wm * WM + i * 16][kk], BK + PAD);
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(fb[j], &ws[kk][wn * WN + j * 16], BN + PAD);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
+  const int row0 = blockIdx.y * kRows;
+  const int col0 = blockIdx.x * L::kWidth;
+  const int steps = (k + kBK - 1) / kBK;
+  if (threadIdx.x >= kConsumers) {
+    mm_produce<NB>(sm, ring, &tm_a, &tm_w, row0, col0, steps);
+    return;
   }
-
-  // epilogue: fragment -> per-warp scratch -> affine, relu, bf16 -> global
-  float* sc = scratch[warp];
-  const int er = lane / 2;       // row within the 16x16 fragment
-  const int ec = (lane % 2) * 8;  // first of 8 columns
-#pragma unroll
-  for (int i = 0; i < FM; ++i) {
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      wmma::store_matrix_sync(sc, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int gr = row0 + wm * WM + i * 16 + er;
-      const int gc = col0 + wn * WN + j * 16 + ec;
-      if (gr < n && gc < c) {
-        __align__(16) __nv_bfloat16 o[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          float x = sc[er * 16 + ec + e] * inv[gc + e] + shift[gc + e];
-          if (relu) x = fmaxf(x, 0.f);
-          o[e] = __float2bfloat16(x);
-        }
-        *reinterpret_cast<uint4*>(out + (size_t)gr * c + gc) =
-            *reinterpret_cast<const uint4*>(o);
-      }
-      __syncwarp();
-    }
+  sm90::setmaxnreg_inc<kConsumerRegs>();
+  // inv and shift of the block's columns (0 past c), read in the epilogue
+  // after the barrier that follows the mainloop
+  float* sv = reinterpret_cast<float*>(sm.ptr + L::SV);
+  for (int i = threadIdx.x; i < 2 * L::kWidth; i += kConsumers) {
+    const int col = col0 + i % L::kWidth;
+    sv[i] = col < c ? (i < L::kWidth ? inv : shift)[col] : 0.f;
   }
+  float acc[32 * NB];
+  mm_consume<NB>(acc, sm, ring, steps);
+
+  // both warpgroups are done with the ring, and every stage issued was
+  // waited for, so no copy still lands in it
+  sm90::named_sync(1, kConsumers);
+  const bool r = relu != 0;
+  sm90::store_rows<NB>(
+      acc,
+      [sv, r](float v, int col) {
+        const float o = __fadd_rn(__fmul_rn(v, sv[col]), sv[L::kWidth + col]);
+        return r ? fmaxf(o, 0.f) : o;
+      },
+      sm.ptr, out, row0, col0, n, c);
+}
+
+template <int NB>
+cudaError_t launch_affine(const CUtensorMap& tm_a, const CUtensorMap& tm_w,
+                          const void* inv, const void* shift, void* out,
+                          int n, int k, int c, int relu, cudaStream_t s) {
+  using L = MmTile<NB>;
+  cudaError_t err = sm90::allow_smem(mm_affine_sm90<NB>, L::SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid((c + L::kWidth - 1) / L::kWidth, (n + kRows - 1) / kRows);
+  mm_affine_sm90<NB><<<grid, kThreads, L::SMEM, s>>>(
+      tm_a, tm_w, static_cast<const float*>(inv),
+      static_cast<const float*>(shift), static_cast<__nv_bfloat16*>(out), n,
+      k, c, relu);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// out (n, c) bf16 from a (n, k) and w (k, c) bf16, inv and shift (c,) f32;
+// nb (1, 2 or 4) sets the column tile, 64 nb wide.
 extern "C" int ieee_mm_affine_bf16(const void* a, const void* w,
                                    const void* inv, const void* shift,
                                    void* out, int n, int k, int c, int relu,
-                                   void* stream) {
+                                   int nb, void* stream) {
   if (n <= 0 || c <= 0) return 0;
-  dim3 grid((c + BN - 1) / BN, (n + BM - 1) / BM);
-  mm_affine_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(a),
-      static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(inv),
-      static_cast<const float*>(shift), static_cast<__nv_bfloat16*>(out), n, k,
-      c, relu);
-  return static_cast<int>(cudaGetLastError());
+  if (k <= 0 || (nb != 1 && nb != 2 && nb != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tm_a, tm_w;
+  const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!sm90::tensor_map_2d(&tm_a, a, bf, 2, n, k, kRows, kBK, sw) ||
+      !sm90::tensor_map_2d(&tm_w, w, bf, 2, k, c, kBK, 64, sw))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto launch = nb == 4   ? &launch_affine<4>
+                : nb == 2 ? &launch_affine<2>
+                          : &launch_affine<1>;
+  return static_cast<int>(launch(tm_a, tm_w, inv, shift, out, n, k, c, relu,
+                                 static_cast<cudaStream_t>(stream)));
 }

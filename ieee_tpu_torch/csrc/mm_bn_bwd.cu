@@ -57,7 +57,7 @@
 // of 8 (the wrappers check).
 
 #include "sm90_gemm.cuh"
-#include "wmma_tile.cuh"  // split_reduce_kernel
+#include "vec8_sums.cuh"  // split_reduce_kernel
 
 namespace {
 
@@ -67,15 +67,16 @@ using sm90::desc_sw128;
 using sm90::pack_bf16;
 using sm90::sw128;
 
-constexpr int kConsumers = 256;             // two warpgroups
-constexpr int kThreads = kConsumers + 128;  // and the producer warpgroup
-constexpr int kProducerRegs = 56;
-constexpr int kConsumerRegs = 224;  // 128*56 + 256*224 <= 65536
+using sm90::kBK;
+using sm90::kConsumerRegs;
+using sm90::kConsumers;
+using sm90::kProducerRegs;
+using sm90::kRows;
+using sm90::kThreads;
+
 constexpr int kStages = 3;
 using Ring = sm90::Ring<kStages>;
-constexpr int kBK = 64;      // reduction step: one 128-byte row of bf16
 constexpr int kTileN = 256;  // wgmma N: output columns of a block
-constexpr int kRows = 128;   // output rows of a block (two m64)
 
 // stage layouts (byte offsets; every tile on a 1024-byte boundary)
 constexpr uint32_t DA_W = 0;        // W (256 K rows x 64 C), K-major

@@ -2,9 +2,12 @@
 // tile loads into 128-byte-swizzled shared tiles counted in by mbarriers
 // (a ring of stages, with waits bounded in time), producer/consumer warp
 // specialisation (setmaxnreg), ldmatrix fragment loads, and wgmma
-// m64n256k16 and m64n64k16 with A from registers (the RS form) and B from
-// shared memory through a matrix descriptor, f32 accumulators in
-// registers; on the host, the 2D tensor maps the TMA loads read.
+// m64n256k16 and m64n64k16 with A from registers (the RS form) or from a
+// K-major shared tile (the SS form) and B from shared memory through a
+// matrix descriptor, f32 accumulators in registers; the block shape the
+// products share (a producer and two consumer warpgroups over 128 rows)
+// and its bf16 row epilogue (store_rows); on the host, the 2D tensor maps
+// the TMA loads read.
 //
 // Shared tiles use the 128-byte swizzle that wgmma reads natively
 // (descriptor layout B128) and that TMA writes with
@@ -15,7 +18,7 @@
 // keeps ldmatrix conflict-free: the 8 row addresses of one 8x8 matrix fall
 // on 8 different chunk positions.
 //
-// B operand layouts (bf16):
+// Operand layouts (bf16); an SS-form A is a K-major tile of 64 rows:
 //   - K-major (the reduction dimension contiguous, trans-b 0): rows are
 //     the N index, 64 reduction values per 128-byte row; 8-row atoms 1024
 //     bytes apart (SBO); a k16 step advances the start address by 32
@@ -43,7 +46,9 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <cstdio>
+#include <cstring>
+
+#include "wait_report.cuh"
 
 namespace sm90 {
 
@@ -85,6 +90,33 @@ template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
+
+// the dynamic shared memory base aligned up to 1024 bytes (the swizzle's
+// atom), as a shared address and a generic pointer
+struct Smem {
+  uint32_t base;
+  uint8_t* ptr;
+};
+
+__device__ __forceinline__ Smem aligned_smem(uint8_t* raw_ptr) {
+  const uint32_t raw = smem_u32(raw_ptr);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  return {base, raw_ptr + (base - raw)};
+}
+
+// --- the block of the warp-specialised products ----------------------------
+// a producer warpgroup (one thread issues TMA) and two consumer warpgroups,
+// each consumer running wgmma on 64 of the block's 128 rows
+constexpr int kConsumers = 256;             // two warpgroups
+constexpr int kThreads = kConsumers + 128;  // and the producer warpgroup
+constexpr int kProducerRegs = 56;
+constexpr int kConsumerRegs = 224;  // 128*56 + 256*224 <= 65536
+constexpr int kBK = 64;             // reduction step: one 128-byte row of bf16
+constexpr int kRows = 128;          // rows of a tile (two m64)
+
+// the bf16 row pitch of store_rows's shared tile, 64 nb columns wide (+8:
+// no bank conflicts)
+__host__ __device__ constexpr int rows_pitch(int nb) { return 64 * nb + 8; }
 
 // --- mbarriers and warp specialisation --------------------------------------
 
@@ -138,24 +170,50 @@ __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
   return done != 0;
 }
 
-// out of line: the report stays out of the waits' registers
-static __device__ __noinline__ void mbar_timed_out(uint32_t bar,
-                                                   uint32_t parity) {
-  if ((threadIdx.x & 31) == 0)  // one report per warp
-    printf("sm90 mbarrier wait timed out: block (%d, %d, %d) thread %d, "
-           "barrier at shared 0x%x, parity %u\n",
-           blockIdx.x, blockIdx.y, blockIdx.z, threadIdx.x, bar, parity);
+// A wait that times out is reported from the host: the kernels hold no
+// call (printf is one), since any call in a kernel that issues wgmma makes
+// ptxas serialise its wgmmas (its note C7510; 7% of mm_stats's time at the
+// layer4 sites on an H100, PERF.md §6). The first thread of the unit's
+// kernels to time out writes a WaitReport (wait_report.cuh) into
+// page-locked host memory mapped into the device, and every timed-out
+// thread traps; the host prints the record (wait_report.cu; ops/_build.py
+// at the process's exit).
+
+// the record in host memory (set by allow_smem before the unit's first
+// launch; null until then), and the flag that elects its one writer
+static __device__ WaitReport* g_wait_report;
+static __device__ uint32_t g_wait_claimed;
+
+// the first timed-out thread writes the record and traps; the others wait
+// for its trap (trapping at once could cut its writes short)
+__device__ __forceinline__ void wait_timed_out(uint32_t bar,
+                                               uint32_t parity) {
+  WaitReport* r = g_wait_report;
+  if (r != nullptr) {
+    if (atomicCAS(&g_wait_claimed, 0u, 1u) != 0u)
+      for (;;) __nanosleep(1000);
+    volatile WaitReport* v = r;
+    v->block[0] = blockIdx.x;
+    v->block[1] = blockIdx.y;
+    v->block[2] = blockIdx.z;
+    v->thread = threadIdx.x;
+    v->bar = bar;
+    v->parity = parity;
+    __threadfence_system();
+    v->set = 1;
+    __threadfence_system();
+  }
   __trap();
 }
 
 // waits until the phase of parity `parity` of `bar` has completed; past
-// kWaitBoundNs it reports the block, the barrier and the parity and traps,
+// kWaitBoundNs it records the block, the barrier and the parity and traps,
 // so a ring that can never fill fails its launch instead of hanging the card
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   if (mbar_try_wait(bar, parity)) return;
   const uint64_t t0 = global_ns();
   while (!mbar_try_wait(bar, parity))
-    if (global_ns() - t0 > kWaitBoundNs) mbar_timed_out(bar, parity);
+    if (global_ns() - t0 > kWaitBoundNs) wait_timed_out(bar, parity);
 }
 
 // A ring of STAGES stages at `base` (each stage_bytes), then the full[s]
@@ -323,6 +381,92 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
         "n"(TRANS_B));
 }
 
+// d (64 x 256 per warpgroup, f32) += A (64 x 16, bf16 in shared memory,
+// K-major, descriptor a) * B (16 x 256, descriptor b); the SS form of
+// wgmma_m64n256k16_rs, no registers spent on A
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128],
+                                                    uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, %131;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(1), "n"(TRANS_B));
+}
+
+// d (64 x 64 per warpgroup, f32) += A (64 x 16, K-major in shared memory,
+// descriptor a) * B (16 x 64, descriptor b): the SS form of
+// wgmma_m64n64k16_rs
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+                                                   uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, %35;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1), "n"(TRANS_B));
+}
+
 // the two bf16 of a packed pair as f32 (low half first)
 __device__ __forceinline__ float bf16_lo(uint32_t v) {
   return __uint_as_float(v << 16);
@@ -335,6 +479,40 @@ __device__ __forceinline__ float bf16_hi(uint32_t v) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// the epilogue's bf16 rows of a block's 128 x 64 NB tile: f(acc, column in
+// the tile) of each m64n(64 NB) accumulator of the consumer threads into a
+// shared tile at `smem` (both warpgroups must be done with what it
+// overlays), then 16-byte chunks of the rows inside (n, c) to out, whose
+// rows are c wide
+template <int NB, class F>
+__device__ __forceinline__ void store_rows(const float (&acc)[32 * NB], F f,
+                                           uint8_t* smem, __nv_bfloat16* out,
+                                           int row0, int col0, int n, int c) {
+  constexpr int kPitch = rows_pitch(NB);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int q = lane & 3;
+  // this thread's rows of the tile (the accumulator's lane/4 and 8 below)
+  const int tr = (tid >> 7) * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+  uint32_t* tile = reinterpret_cast<uint32_t*>(smem);
+#pragma unroll
+  for (int i = 0; i < 8 * NB; ++i) {  // 8-column chunks
+    const int col = 8 * i + 2 * q;
+    tile[(tr * kPitch + col) / 2] =
+        pack_bf16(f(acc[4 * i], col), f(acc[4 * i + 1], col + 1));
+    tile[((tr + 8) * kPitch + col) / 2] =
+        pack_bf16(f(acc[4 * i + 2], col), f(acc[4 * i + 3], col + 1));
+  }
+  named_sync(1, kConsumers);
+  constexpr int kChunks = 8 * NB;  // 16-byte chunks of a row
+  for (int u = tid; u < kRows * kChunks; u += kConsumers) {
+    const int r = u / kChunks, ch = (u % kChunks) * 8;
+    if (row0 + r < n && col0 + ch < c)
+      *reinterpret_cast<uint4*>(out + (size_t)(row0 + r) * c + col0 + ch) =
+          *reinterpret_cast<const uint4*>(smem + (r * kPitch + ch) * 2);
+  }
 }
 
 // --- host: tensor maps --------------------------------------------------------
@@ -380,10 +558,35 @@ inline bool tensor_map_2d(CUtensorMap* map, const void* ptr,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// points this unit's g_wait_report at the process's host record, which
+// the first call of all allocates; once per unit
+static cudaError_t arm_wait_report() {
+  static bool armed = false;  // this unit's g_wait_report is set
+  if (armed) return cudaSuccess;
+  WaitReport*& host = wait_report_host();
+  if (host == nullptr) {
+    void* p = nullptr;
+    const cudaError_t err =
+        cudaHostAlloc(&p, sizeof(WaitReport), cudaHostAllocMapped);
+    if (err != cudaSuccess) return err;
+    memset(p, 0, sizeof(WaitReport));
+    host = static_cast<WaitReport*>(p);
+  }
+  void* dev = nullptr;
+  cudaError_t err = cudaHostGetDevicePointer(&dev, host, 0);
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbol(g_wait_report, &dev, sizeof(dev));
+  armed = err == cudaSuccess;
+  return err;
+}
+
 // lets `kernel` take `bytes` of dynamic shared memory (above the 48 KB
-// default)
+// default), after arm_wait_report: every launch of a kernel that waits on
+// mbarriers comes through here first
 template <typename Kernel>
-inline cudaError_t allow_smem(Kernel kernel, int bytes) {
+static cudaError_t allow_smem(Kernel kernel, int bytes) {
+  const cudaError_t err = arm_wait_report();
+  if (err != cudaSuccess) return err;
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }

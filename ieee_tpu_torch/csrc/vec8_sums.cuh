@@ -1,36 +1,17 @@
-// The WMMA tiling of mm_stats (mm_bn_train.cu), the 8-wide bf16/f32 vector
-// helpers of the streaming kernels (block_bwd.cu's reduce3, probes.cu's
-// scale), and the deterministic-sum kernels that every kernel with sums
-// across blocks shares. The tiling: a block of 256 threads (8 warps, 2 x 4)
-// owns a 128x128 output tile, each warp 64x32 of it as 4x2 WMMA 16x16x16
-// bf16 fragments with f32 accumulators, the reduction walked in steps of 32
-// through padded shared tiles. Sums across blocks are per-block partials
-// added in a fixed order by a second small kernel (no float atomics), so
-// two runs agree bit for bit.
+// What the streaming kernels and the kernels with sums across blocks share:
+// the 8-wide bf16/f32 vector helpers (block_bwd.cu's reduce3,
+// block_bwd_sm90.cu's operand pass, probes.cu's scale) and the two in-order
+// sum kernels. Sums across blocks are per-block partials added in a fixed
+// order by a second small kernel (no float atomics), so two runs agree bit
+// for bit.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 
 namespace {
-
-using namespace nvcuda;
-
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 32;
-constexpr int PAD = 8;
-constexpr int THREADS = 256;
-constexpr int WARPS_N = 4;   // warp grid 2 (rows) x 4 (cols)
-constexpr int WM = 64;       // rows per warp
-constexpr int WN = 32;       // cols per warp
-constexpr int FM = WM / 16;  // 4 fragments down
-constexpr int FN = WN / 16;  // 2 fragments across
-
-using frag_acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 __device__ __forceinline__ void load_vec8(const float* p, float v[8]) {
   const float4 lo = *reinterpret_cast<const float4*>(p);
@@ -55,13 +36,6 @@ __device__ __forceinline__ uint4 pack8(const float f[8]) {
 #pragma unroll
   for (int e = 0; e < 8; ++e) o[e] = __float2bfloat16(f[e]);
   return *reinterpret_cast<const uint4*>(o);
-}
-
-__device__ __forceinline__ void zero_acc(frag_acc (&acc)[FM][FN]) {
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 }
 
 // stats[which][col] = sum over row blocks of part[block][which][col], in

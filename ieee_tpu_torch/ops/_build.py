@@ -15,12 +15,14 @@ machines without ``nvcc``.
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import hashlib
 import os
 import re
 import shutil
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -29,7 +31,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["load_library", "build_seconds", "build_log", "kernel_resources",
-           "check", "stream_ptr"]
+           "wait_report", "check", "stream_ptr"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -41,11 +43,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of csrc/*.cu; every function returns a cudaError_t as int
+# (ieee_wait_report: 1 if it wrote a report, else 0)
 _SIGNATURES = {
     "ieee_distmat_f32": [_P, _P, _P, _I, _I, _I, _P],
-    "ieee_mm_affine_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ieee_mm_affine_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "ieee_partpool": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "ieee_mm_stats_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "ieee_mm_stats_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ieee_mm_bn_da_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ieee_mm_bn_dw_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "ieee_block_reduce3": [_P] * 7 + [_I] * 3 + [_P],
@@ -54,6 +57,7 @@ _SIGNATURES = {
     "ieee_block_bn1_apply": [_P] * 9 + [_I] * 5 + [_P],
     "ieee_scale_bf16": [_P, _P, _F, _I, _I, _I, _I, _P],
     "ieee_bn_mm_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "ieee_wait_report": [ctypes.c_char_p, _I],
 }
 
 _lock = threading.Lock()
@@ -139,6 +143,7 @@ def load_library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _state["lib"] = lib
         _state["seconds"] = time.perf_counter() - t0
+        atexit.register(_print_wait_report)
         return lib
 
 
@@ -183,6 +188,25 @@ def kernel_resources(log: str) -> dict:
         if m:
             out[name]["registers"] = int(m.group(1))
     return out
+
+
+def wait_report():
+    """The report of a Hopper kernel's mbarrier wait that ran past its 1 s
+    bound in this process (the kernel then trapped and its launch failed),
+    or None. The kernels write it into host memory (``csrc/sm90_gemm.cuh``
+    ``mbar_wait``; a printf in them would serialise their wgmmas), so it
+    can be read after the failure."""
+    lib = _state["lib"]
+    if lib is None:
+        return None
+    buf = ctypes.create_string_buffer(256)
+    return buf.value.decode() if lib.ieee_wait_report(buf, 256) else None
+
+
+def _print_wait_report() -> None:
+    report = wait_report()
+    if report is not None:
+        print(report, file=sys.stderr, flush=True)
 
 
 def check(code: int, name: str) -> None:

@@ -15,11 +15,14 @@ and w cast to bf16 and accumulates in f32:
   ``_mm_bn_bwd`` as a ``torch.autograd.Function``.
 
 Each kernel wrapper takes the plain version (``*_plain``) for CPU tensors
-and launches the CUDA kernel (``csrc/mm_affine.cu``, ``csrc/mm_bn_train.cu``,
-``csrc/mm_bn_bwd.cu``) for CUDA tensors, or raises.
+and launches the CUDA kernel (``csrc/mm_affine.cu``, ``csrc/mm_bn_train.cu``
+on the mainloop of ``csrc/mm_sm90.cuh``; ``csrc/mm_bn_bwd.cu``) for CUDA
+tensors, or raises.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -28,7 +31,8 @@ from .. import _build
 
 __all__ = ["mm_affine_act", "mm_affine_act_plain", "mm_stats",
            "mm_stats_plain", "mm_bn_da", "mm_bn_da_plain", "mm_bn_dw",
-           "mm_bn_dw_plain", "dy_plain", "mm_bn_act_train", "EPS"]
+           "mm_bn_dw_plain", "dy_plain", "mm_bn_act_train", "EPS",
+           "TRAIN_SITES", "EVAL_SITES"]
 
 EPS = 1e-5
 _BF16 = torch.bfloat16
@@ -63,6 +67,50 @@ def _cuda_operands(name, *tensors):
             t = t.clone()
         out.append(t)
     return out
+
+
+#: the forward kernels' tiles (csrc/mm_sm90.cuh): 128 rows x one of these
+#: column widths, the widest first
+MM_ROWS = 128
+MM_WIDTHS = (256, 128, 64)
+
+
+def _mm_plan(n: int, c: int, sms: int = 132) -> int:
+    """The column width of ``mm_stats``'s and ``mm_affine``'s output tile
+    (one block a 128-row x width tile, one block an SM): the widest whose
+    grid fills at least half the card's SMs, else the narrowest. The layer4
+    and CIM sites of the train and eval batches take 256; the reduce sites
+    and the batch-8 CIM site narrower tiles."""
+    rows = -(-n // MM_ROWS)
+    for width in MM_WIDTHS:
+        if 2 * rows * -(-c // width) >= sms:
+            return width
+    return MM_WIDTHS[-1]
+
+
+#: the fused 1x1 sites of one train step at batch 128 on 256x128 images
+#: (N = 128*16*8 rows at the 16x8 layer4 map): (N, K, C, relu, sites per
+#: step over the 3 trunks); 33 launches of each train kernel
+TRAIN_SITES = (
+    (16384, 1024, 512, True, 3),    # layer4.0 cb1
+    (16384, 512, 2048, False, 9),   # layer4.* cb3 (+ identity)
+    (16384, 1024, 2048, False, 3),  # layer4.0 downsample
+    (16384, 2048, 512, True, 6),    # layer4.1-2 cb1
+    (16384, 2048, 2048, True, 6),   # CIM convOne, convAvgRest
+    (128, 2048, 768, True, 3),      # reduce, global rows
+    (768, 2048, 768, True, 3),      # reduce, part rows (B*6)
+)
+#: the fused 1x1 sites of an eval batch of 100 (N = 100*16*8 rows): (N, K,
+#: C, relu, sites per batch over the 3 trunks); 21 launches of mm_affine
+EVAL_SITES = ((12800, 1024, 512, True, 3),    # layer4.0 cb1
+              (12800, 512, 2048, False, 9),   # layer4.* cb3
+              (12800, 1024, 2048, False, 3),  # layer4.0 downsample
+              (12800, 2048, 512, True, 6))    # layer4.1-2 cb1
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_multiple_of_8(name, **dims) -> None:
@@ -103,9 +151,10 @@ def mm_affine_act(a: torch.Tensor, w: torch.Tensor, inv: torch.Tensor,
         "mm_affine", a.to(_BF16), w.to(_BF16), inv.float(), shift.float())
     lib = _build.load_library()
     out = torch.empty((n, c), dtype=_BF16, device=a.device)
+    width = _mm_plan(n, c, _sm_count(a.device.index))
     _build.check(lib.ieee_mm_affine_bf16(
         a.data_ptr(), w.data_ptr(), inv.data_ptr(), shift.data_ptr(),
-        out.data_ptr(), n, k, c, int(bool(relu)),
+        out.data_ptr(), n, k, c, int(bool(relu)), width // 64,
         _build.stream_ptr(a.device)), "mm_affine")
     LAUNCHES["mm_affine"] += 1
     return out
@@ -133,11 +182,13 @@ def mm_stats(a: torch.Tensor, w: torch.Tensor):
     y = torch.empty((n, c), dtype=_BF16, device=a.device)
     stats = torch.empty((2, c), dtype=torch.float32, device=a.device)
     # per-128-row-block sums, added in order by the second kernel
-    part = torch.empty((max(1, -(-n // 128)), 2, c), dtype=torch.float32,
+    part = torch.empty((max(1, -(-n // MM_ROWS)), 2, c), dtype=torch.float32,
                        device=a.device)
+    width = _mm_plan(n, c, _sm_count(a.device.index))
     _build.check(lib.ieee_mm_stats_bf16(
         a.data_ptr(), w.data_ptr(), y.data_ptr(), stats.data_ptr(),
-        part.data_ptr(), n, k, c, _build.stream_ptr(a.device)), "mm_stats")
+        part.data_ptr(), n, k, c, width // 64, _build.stream_ptr(a.device)),
+        "mm_stats")
     LAUNCHES["mm_stats"] += 1
     return y, stats
 

@@ -10,7 +10,7 @@ to back (CUDA events), then each device kernel's ms per call from
 ``--step``: the train step at bench.py's protocol with ``cuda.fused_1x1``
 and ``cuda.block_megakernel`` on (``chip_smoke.py`` phase 7's setup),
 device ms per step from two profiles of 2 steps after 3 warm-up steps,
-with the block kernels' rows.
+with the block kernels' rows and the ``mm_stats`` kernel's.
 
 It reaches the kernels only through the wrappers' public names, so a copy
 of this file placed in another checkout of the port (the parent commit's,
@@ -40,9 +40,11 @@ __all__ = ["STAGES", "bench", "step_profile", "main"]
 #: (H, W, C, cm, blocks per step over the three trunks) of layer1-3
 STAGES = ((64, 32, 256, 64, 6), (32, 16, 512, 128, 9),
           (16, 8, 1024, 256, 15))
-# the block kernels' rows in a profile, old and new names
+# the block kernels' rows in a profile, old and new names, and the fused
+# 1x1 forward's (mm_stats_kernel, mm_stats_sm90)
 _BLOCK_KEYS = ("Bn3Op", "Conv2Op", "conv2_prep", "Bn1Op", "bn3_d2",
-               "bn3_dw", "tgemm_kernel", "rows_gemm_kernel", "reduce3")
+               "bn3_dw", "tgemm_kernel", "rows_gemm_kernel", "reduce3",
+               "mm_stats")
 
 
 def _queued_ms(fn, device, iters: int) -> float:

@@ -4,11 +4,12 @@ against the fused folded-BN head with the partpool kernel
 uint8 triplets at 256x128 already on the device, random weights.
 
 Counterpart of ``tools/eval_fwd_bench.py``. Both paths run the same model
-(its layer4 1x1 sites on the ``mm_affine`` kernel, the config's default)
-after the test transform; each is timed as the median of single calls
-(CUDA events) after warm-up, then the two features are compared. The JAX
-tool's third path, the int8 PTQ eval (``models/int8_eval.py``), is not
-ported yet (ROADMAP A.15); the tool says so on a line of its own.
+(built with ``fused_1x1``: its layer4 1x1 sites on the ``mm_affine``
+kernel, which the config leaves off by default, ``cuda.fused_1x1``) after
+the test transform; each is timed as the median of single calls (CUDA
+events) after warm-up, then the two features are compared. The JAX tool's
+third path, the int8 PTQ eval (``models/int8_eval.py``), is not ported yet
+(ROADMAP A.7); the tool says so on a line of its own.
 
 Usage: python -m ieee_tpu_torch.tools.eval_fwd_bench [batch]
     [--device cuda]
@@ -55,7 +56,7 @@ def run(batch: int = 100, device="cuda", height: int = 256,
         out[name] = ms
         print(f"{name}: {ms:.1f} ms/batch ({batch / ms * 1e3:.0f} "
               "triplets/s)", flush=True)
-    print("int8 PTQ: not ported yet (ROADMAP A.15)")
+    print("int8 PTQ: not ported yet (ROADMAP A.7)")
     a = plain(imgs).float()
     b = fused(imgs).float()
     err = ((a - b).abs().max() / a.abs().max().clamp_min(1e-6)).item()

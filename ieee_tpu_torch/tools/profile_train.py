@@ -134,6 +134,12 @@ def run(batch: int = 128, steps: int = 10, top: int = 60,
     for name, count, ms in table:
         print(f"{name[:72]:<72} {ms:>9.3f} {count:>6} "
               f"{ms * 1e3 / max(count, 1):>9.1f}")
+    if device.type == "cuda":  # the fused 1x1 sites' kernels, by name
+        for name, count, ms in table:
+            if any(k in name for k in ("mm_stats", "mm_bn_da", "mm_bn_dw")):
+                short = name.replace("(anonymous namespace)::", "")
+                print(f"fused 1x1 kernel {short.split('(')[0]}: {ms:.3f} "
+                      f"ms/step over {count} launches")
     return {"steps_per_s": steps / dt, "triplets_per_s": steps * batch / dt,
             "loss": loss, "ms_per_step": dev_ms, "busy": busy,
             "table": table}

@@ -73,11 +73,24 @@ def test_distmat_kernel_matches_plain(cuda, m, n, k):
     assert err <= 1e-5 * want.abs().max().item(), err
 
 
+# the forward kernels' (csrc/mm_sm90.cuh) tiling edges: N of 1, 129 and
+# 1037 (off the 128-row tile), C of 8, 264 and 768 (off the 256-wide
+# tile), K of 8, 24, 40 and 264 (off the 64-deep step), and shapes that
+# take each column width of the plan (`_mm_plan` on 132 SMs: 256 at
+# 16384 x 264 and 1037 x 2048, 128 at 2048 x 768, 64 below)
+MM_EDGES = [(1, 8, 8, True), (129, 40, 264, False), (1037, 264, 264, True),
+            (1037, 24, 768, False), (2048, 264, 768, True),
+            (16384, 40, 264, False), (1037, 2048, 2048, False),
+            (128, 2048, 768, True), (768, 2048, 768, True)]
+
+
 # mm_affine: bf16 operands, f32 accumulation in both; the bf16 outputs may
 # differ by one bf16 rounding step (2^-8 relative) where the f32 sums differ
 @pytest.mark.parametrize("n,k,c,relu", [
     (12800, 1024, 512, True), (12800, 512, 2048, False),
-    (1037, 2048, 768, True), (100, 2048, 768, False), (13, 24, 40, True)])
+    (12800, 1024, 2048, False), (12800, 2048, 512, True),
+    (1037, 2048, 768, True), (100, 2048, 768, False),
+    (13, 24, 40, True)] + MM_EDGES)
 def test_mm_affine_kernel_matches_plain(cuda, n, k, c, relu):
     a = _randn((n, k), 2, cuda).to(torch.bfloat16)
     w = _randn((k, c), 3, cuda, scale=k ** -0.5)
@@ -85,8 +98,10 @@ def test_mm_affine_kernel_matches_plain(cuda, n, k, c, relu):
     shift = _randn((c,), 5, cuda)
     before = kernels.LAUNCHES["mm_affine"]
     got = mm_affine_act(a, w, inv, shift, relu).float()
+    again = mm_affine_act(a, w, inv, shift, relu).float()
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["mm_affine"] == before + 1
+    assert kernels.LAUNCHES["mm_affine"] == before + 2
+    assert torch.equal(got, again)  # deterministic
     want = mm_affine_act_plain(a, w, inv, shift, relu).float()
     assert got.dtype == torch.float32 and got.shape == (n, c)
     tol = 2 ** -7 * want.abs().clamp_min(1.0)
@@ -154,7 +169,7 @@ def _train_inputs(n, k, c, device):
 # mm_stats: y rounds to bf16 in both (one bf16 step, plus 1e-5 of the
 # largest |y| where the f32 sums differ near zero); the f32 channel sums
 # differ only by summation order: 1e-5 of sum |y| (sum y^2)
-@pytest.mark.parametrize("n,k,c,relu", TRAIN_SHAPES)
+@pytest.mark.parametrize("n,k,c,relu", TRAIN_SHAPES + MM_EDGES)
 def test_mm_stats_kernel_matches_plain(cuda, n, k, c, relu):
     a, w, *_ = _train_inputs(n, k, c, cuda)
     before = kernels.LAUNCHES["mm_stats"]

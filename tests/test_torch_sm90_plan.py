@@ -1,7 +1,8 @@
 """The pure-Python planning around the Hopper kernels (``csrc/mm_bn_bwd.cu``,
-``csrc/bn_gemm_sm90.cu``, ``csrc/block_bwd_sm90.cu``): the dW kernels'
-splits of N into row ranges,
-and the parsing of ``nvcc -Xptxas -v`` output that ``chip_smoke.py``
+``csrc/bn_gemm_sm90.cu``, ``csrc/block_bwd_sm90.cu``, and
+``csrc/mm_bn_train.cu`` and ``csrc/mm_affine.cu`` on ``csrc/mm_sm90.cuh``):
+the dW kernels' splits of N into row ranges, the forward kernels' column
+tile, and the parsing of ``nvcc -Xptxas -v`` output that ``chip_smoke.py``
 prints. All run on the CPU in milliseconds; the kernels themselves are
 held to their plain versions on the card in
 ``tests/test_torch_kernels_cuda.py``.
@@ -25,7 +26,12 @@ from ieee_tpu_torch.ops.kernels.matmul_bn import (
     DW_MIN_ROWS,
     DW_ROW_STEP,
     DW_TILE,
+    EVAL_SITES,
+    MM_ROWS,
+    MM_WIDTHS,
+    TRAIN_SITES,
     _dw_plan,
+    _mm_plan,
 )
 
 SMS = 132
@@ -57,6 +63,56 @@ def test_dw_plan_splits_the_small_outputs_of_the_step():
     assert _dw_plan(16384, 1024, 512, sms=SMS) == (8, 2048)
     # CIM (2048 -> 2048) fills the card with its 128 tiles alone
     assert _dw_plan(16384, 2048, 2048, sms=SMS) == (1, 16384)
+
+
+# (N, K, C): every 1x1 site of a batch-128 train step and of an eval batch
+# of 100, the config's batch 8 (CIM, both reduce sites), the card tests'
+# ragged and tiny shapes, and the largest N the grid's 65535 row tiles take
+@pytest.mark.parametrize("n,k,c", [
+    (16384, 1024, 512), (16384, 512, 2048), (16384, 1024, 2048),
+    (16384, 2048, 512), (16384, 2048, 2048), (128, 2048, 768),
+    (768, 2048, 768), (12800, 1024, 512), (12800, 512, 2048),
+    (12800, 1024, 2048), (12800, 2048, 512), (1024, 2048, 2048),
+    (8, 2048, 768), (48, 2048, 768), (1037, 2048, 2048), (2048, 264, 768),
+    (129, 40, 264), (1, 8, 8), (16384, 40, 264), (65535 * 128, 8, 8)])
+def test_mm_plan_covers_the_output_and_fits_the_grid(n, k, c):
+    width = _mm_plan(n, c, sms=SMS)
+    assert width in MM_WIDTHS and width % 64 == 0  # NB 64-column boxes
+    rows, cols = -(-n // MM_ROWS), -(-c // width)
+    # the grid covers N and C, and the 64-deep steps K
+    assert rows * MM_ROWS >= n and cols * width >= c
+    assert -(-k // 64) * 64 >= k
+    assert rows <= 65535 and cols <= 65535  # grid y and x
+    # the widest tile whose grid fills half the SMs, else the narrowest
+    blocks = {wd: rows * -(-c // wd) for wd in MM_WIDTHS}
+    fill = [wd for wd in MM_WIDTHS if 2 * blocks[wd] >= SMS]
+    assert width == (max(fill) if fill else min(MM_WIDTHS))
+
+
+def test_mm_plan_at_the_sites():
+    # layer4 and CIM at train batch 128 and eval batch 100: 128 x 256
+    # tiles, 2-8 waves
+    for n in (16384, 12800):
+        assert _mm_plan(n, 512, sms=SMS) == _mm_plan(n, 2048, sms=SMS) == 256
+    # the config's batch-8 CIM: 8 x 8 tiles of 256 fill 64 SMs, 8 x 16 of
+    # 128 fill 128
+    assert _mm_plan(1024, 2048, sms=SMS) == 128
+    # the reduce sites (global and part rows at batch 128 and 8): 64
+    for n in (128, 768, 8, 48):
+        assert _mm_plan(n, 768, sms=SMS) == 64
+
+
+def test_mm_site_tables_count_the_launches_of_a_step_and_a_batch():
+    # a train step launches each train kernel at 33 sites, an eval batch
+    # mm_affine at 21 (7 per trunk); the layer4 and CIM sites take the
+    # 256-wide tile, the reduce sites the 64-wide one
+    assert sum(site[-1] for site in TRAIN_SITES) == 33
+    assert sum(site[-1] for site in EVAL_SITES) == 21
+    for n, k, c, _, _ in TRAIN_SITES + EVAL_SITES:
+        assert k % 8 == 0 and c % 8 == 0  # the kernels' 16-byte strides
+    assert {_mm_plan(n, c, sms=SMS) for n, _, c, _, _ in TRAIN_SITES} == {
+        256, 64}
+    assert {_mm_plan(n, c, sms=SMS) for n, _, c, _, _ in EVAL_SITES} == {256}
 
 
 # (N, C, cm): bn3_apply at layer1-3 of a batch-128 step, width 512, the
@@ -173,7 +229,7 @@ ptxas info    : Used 10 registers, 384 bytes cmem[0]
 
 
 def test_kernel_resources_reads_registers_and_spills():
-    # a called function's properties (the wait's out-of-line report) do
+    # a called function's properties (here an out-of-line report) do
     # not overwrite the kernel's own spills
     res = _build.kernel_resources(LOG)
     assert len(res) == 2

@@ -17,7 +17,7 @@ import torch
 
 TOOLS = ("bw_probe", "bw_probe2", "fusion_probe", "roofline_probe",
          "profile_train", "eval_bench", "eval_fwd_bench", "loader_bench",
-         "block_bench")
+         "block_bench", "mm_bench")
 
 
 def _tool(name):
@@ -130,7 +130,7 @@ def test_eval_fwd_bench(capsys):
                                       iters=1)
     out = capsys.readouterr().out
     assert "plain:" in out and "fused:" in out
-    assert "int8 PTQ: not ported yet (ROADMAP A.15)" in out
+    assert "int8 PTQ: not ported yet (ROADMAP A.7)" in out
     # the folded head against the plain forward on the same weights
     # (bf16 trunks; 5.7e-3 measured at this size)
     assert res["rel_dev"] < 2e-2
@@ -159,3 +159,16 @@ def test_block_bench(capsys):
     out = capsys.readouterr().out
     assert out.count("ms per call queued") == 9
     assert "per step (30 blocks), queued:" in out
+
+
+def test_mm_bench(capsys):
+    # the four 1x1 kernels' plain versions at one small site each
+    totals = _tool("mm_bench").bench(
+        "cpu", iters=1, train_sites=((64, 32, 16, True, 33),),
+        eval_sites=((40, 24, 8, False, 21),))
+    assert set(totals) == {"mm_stats", "mm_affine", "mm_bn_da", "mm_bn_dw"}
+    assert _finite_ms(totals)
+    out = capsys.readouterr().out
+    assert out.count("ms per call queued") == 4
+    assert "mm_stats per train step (33 sites), queued:" in out
+    assert "per trunk (7 sites):" in out
