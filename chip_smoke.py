@@ -19,7 +19,12 @@ Phases (any failure raises and exits non-zero):
    median time of each over repeated launches (CUDA events), the time of
    the PyTorch library call that computes the same product, and the
    least time the card could take (bytes over 3.35 TB/s or operations over
-   the type's peak, whichever is larger). ``mm_affine`` runs at the 21
+   the type's peak, whichever is larger). ``distmat`` runs at RGBNT201's
+   836 x 836, the engine eval's 170 x 340 and the CLI eval's 16 x 32 (K
+   2304), a ragged K, and splits over K with an odd m + n (1 x 128, 837 x
+   836), each twice (bit for bit), also queued, with its
+   3xTF32 bound (the kernel's three TF32 products) and the f32-core one.
+   ``mm_affine`` runs at the 21
    layer4 sites of an eval batch of 100 (7 per trunk), the CIM and reduce
    shapes, a ragged N and a ragged N, K and C, each twice (bit for bit),
    the batch's sites also with 10 calls queued, with a table of its times
@@ -39,8 +44,8 @@ Phases (any failure raises and exits non-zero):
    ``bottleneck_train`` op against ``plain=True``.
    The probes' kernels run at the tools' shapes: ``scale_bf16`` on an
    (8192, 8192) bf16 array at both tile heights and a ragged one (bit for
-   bit), ``probe_mm_stats`` (the ``mm_stats`` kernel) and ``bn_mm`` at
-   16384 x 2048 x 2048 and a ragged N, ``bn_mm`` also queued.
+   bit, also queued), ``probe_mm_stats`` (the ``mm_stats`` kernel) and
+   ``bn_mm`` at 16384 x 2048 x 2048 and a ragged N, ``bn_mm`` also queued.
 3. The eval path through the CLI, ``ieee_tpu_torch.main_multimodal``, with
    ``test.evaluate True`` on ``synthetic_mm`` at 256x128, batch 100,
    random weights: the launch counts are set to 0 just before and read
@@ -48,8 +53,12 @@ Phases (any failure raises and exits non-zero):
 4. The engine's eval at the benchmark's scale (171 pids: 170 query x 340
    gallery triplets), fused (kernels) and plain: eval triplets/s of each and
    the cosine between their features (>= 0.999).
-5. The distmat at RGBNT201's 836 x 836 test size and at Market-1501 scale
-   (3368 x 15913 x 2304).
+5. The distmat at Market-1501 scale (3368 x 15913 x 2304): against its
+   plain version, and on q's first 500 rows both against float64 (the
+   kernel's error at most twice the plain version's plus 2^-23 of the
+   largest entry); the kernel's, the plain version's and ``addmm``'s times
+   beside the 3xTF32 and f32-core bounds; the mAP and CMC of the rankings
+   by the kernel's and the plain distmat (printed).
 6. The training path through the CLI: the headline config trains one epoch
    on ``synthetic_mm`` at 256x128, batch 8 (the config's), random weights,
    then evaluates. Counts set to 0 just before, read just after: the six
@@ -70,13 +79,17 @@ Phases (any failure raises and exits non-zero):
    (loss, and every gradient tensor's cosine).
 8. The measurement tools (``ieee_tpu_torch/tools/``), each tool's
    ``main()`` in-process at its defaults on the card (``profile_train``
-   with ``--steps 3``), launch counts set to 0 just before each and read
+   with ``--steps 3``), and ``profile_train`` and ``eval_fwd_bench`` also
+   with ``--fused``, launch counts set to 0 just before each and read
    just after: ``bw_probe`` must launch ``scale_bf16``, ``fusion_probe``
-   ``mm_stats`` and ``bn_mm``, ``profile_train`` the train kernels (33 per
-   step), ``eval_bench`` the distmat, ``eval_fwd_bench`` partpool and
-   mm_affine, ``block_bench`` the three block product kernels,
-   ``mm_bench`` the four 1x1 kernels. They print the bandwidth and matmul
-   rates the card reaches.
+   ``mm_stats`` and ``bn_mm``, ``profile_train`` no train kernel at its
+   default (the reference's plain path) and the train kernels (33 per
+   step) with ``--fused``, ``eval_bench`` the distmat, ``eval_fwd_bench``
+   partpool and no mm_affine at its default, both with ``--fused``,
+   ``block_bench`` the three block product kernels, ``mm_bench`` the
+   four 1x1 kernels, ``kernel_bench`` the distmat and ``scale_bf16``
+   (per call, queued and device times). They print the bandwidth and
+   matmul rates the card reaches.
 
 Each phase prints its seconds, and the run its total. The line before the
 last is the JSON list of kernels; the last line is ``{"ok": true,
@@ -131,20 +144,25 @@ BLOCK_KERNELS = ("reduce3", "bn3_apply", "conv2_bwd", "bn1_apply")
 BLOCK_PRODUCTS = (("bn3_apply", ("Bn3Op",)),
                   ("conv2_bwd", ("Conv2Op", "conv2_prep")),
                   ("bn1_apply", ("Bn1Op",)))
-# phase 8: each tool's arguments (besides --device cuda) and the kernels it
-# must launch (fusion_probe's probe_mm_stats runs on mm_stats: PERF.md row
-# 13 is row 4's kernel)
-TOOLS = (("bw_probe", [], ("scale_bf16",)),
-         ("fusion_probe", [], ("mm_stats", "bn_mm")),
-         ("bw_probe2", [], ()),
-         ("roofline_probe", [], ()),
-         ("profile_train", ["--steps", "3"], TRAIN_KERNELS),
-         ("eval_bench", [], ("distmat",)),
-         ("eval_fwd_bench", [], ("partpool", "mm_affine")),
-         ("loader_bench", [], ()),
-         ("block_bench", [], ("conv2_bwd", "bn1_apply", "bn3_apply")),
+# phase 8: each tool's arguments (besides --device cuda), the kernels it
+# must launch and those it must not (fusion_probe's probe_mm_stats runs on
+# mm_stats: PERF.md row 13 is row 4's kernel). profile_train and
+# eval_fwd_bench measure the reference's plain path by default (no fused
+# 1x1 site: no train kernel, no mm_affine) and the fused one with --fused
+TOOLS = (("bw_probe", [], ("scale_bf16",), ()),
+         ("fusion_probe", [], ("mm_stats", "bn_mm"), ()),
+         ("bw_probe2", [], (), ()),
+         ("roofline_probe", [], (), ()),
+         ("profile_train", ["--steps", "3"], (), TRAIN_KERNELS),
+         ("profile_train", ["--steps", "3", "--fused"], TRAIN_KERNELS, ()),
+         ("eval_bench", [], ("distmat",), ()),
+         ("eval_fwd_bench", [], ("partpool",), ("mm_affine",)),
+         ("eval_fwd_bench", ["--fused"], ("partpool", "mm_affine"), ()),
+         ("loader_bench", [], (), ()),
+         ("block_bench", [], ("conv2_bwd", "bn1_apply", "bn3_apply"), ()),
          ("mm_bench", ["--iters", "3"], ("mm_stats", "mm_affine",
-                                        "mm_bn_da", "mm_bn_dw")))
+                                        "mm_bn_da", "mm_bn_dw"), ()),
+         ("kernel_bench", ["--iters", "10"], ("distmat", "scale_bf16"), ()))
 # blocks on the block path per train step (10 per trunk, 3 trunks)
 BLOCKS_PER_STEP = 30
 # least cosine between a fused and a plain step's gradient tensor (phase
@@ -257,23 +275,40 @@ def check_kernels(results):
         if queued:
             r["cases"][-1]["queued_ms"] = median_ms(
                 lambda: [fn() for _ in range(10)], iters) / 10
+            print(f"  {name} {shape}: queued "
+                  f"{r['cases'][-1]['queued_ms']:.4f} ms per call")
 
-    # distmat: full f32 against cuBLAS f32 (TF32 off); tolerance a few f32
-    # ulps of the largest entry (the two sum K products in other orders).
-    # Library call: the f32 product with the norms, as one addmm
+    # distmat: the 3xTF32 kernel (three TF32 products into f32 sums)
+    # against cuBLAS f32 (TF32 off); tolerance a few f32 ulps of the
+    # largest entry (the two sum K products in other orders); twice, bit
+    # for bit. Shapes: RGBNT201's test set (a split over K in 5), the
+    # engine eval's 170 x 340 and the CLI eval's 16 x 32 (split in 18), a
+    # ragged K, and splits with an odd m + n and an even n (one query
+    # against 128 gallery rows, 837 x 836). Library call: the f32 product
+    # with the norms, as one addmm. Bound: the kernel's three TF32 products
+    # (the f32-core bound printed)
     for i, (m, n, k) in enumerate(((836, 836, 2304), (170, 340, 2304),
-                                   (37, 300, 19))):
+                                   (16, 32, 2304), (37, 300, 19),
+                                   (1, 128, 2304), (837, 836, 2304))):
         q, g = randn((m, k), 1).abs(), randn((n, k), 2).abs()
-        got, want = euclidean_sq(q, g), euclidean_sq_plain(q, g)
+        got, again = euclidean_sq(q, g), euclidean_sq(q, g)
+        want = euclidean_sq_plain(q, g)
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"distmat {[m, n, k]}: two runs differ")
+        nbytes = 4.0 * (m * k + n * k + m * n)
         record("distmat", [m, n, k], got, want,
                1e-5 * want.abs().max().item(),
                lambda: euclidean_sq(q, g), lambda: euclidean_sq_plain(q, g),
                lambda: torch.addmm((q * q).sum(1)[:, None]
                                    + (g * g).sum(1)[None, :], q, g.t(),
                                    alpha=-2.0),
-               bound_ms(2.0 * m * n * k, 4.0 * (m * k + n * k + m * n),
-                        "f32"), weight=int(i == 0))
+               bound_ms(6.0 * m * n * k, nbytes, "tf32"),
+               weight=int(i == 0), queued=True)
+        f32 = bound_ms(2.0 * m * n * k, nbytes, "f32")
+        print(f"  distmat {[m, n, k]}: bound 3xTF32 "
+              f"{results['distmat']['cases'][-1]['bound_ms']:.4f} ms, f32 "
+              f"cores {f32[0]:.4f} ms ({f32[1]})")
 
     # partpool: the eval head's call (B=100, 16x8x2048 f32 map, P=6 with
     # overlapping stripes, 2048->768), a bf16 map and a ragged batch; the
@@ -820,7 +855,7 @@ def check_probe_kernels(record):
                    lambda: scale_bf16_plain(x, tile),
                    lambda: torch.mul(x, c),
                    bound_ms(1.0 * rows * cols, nbytes, "bf16"),
-                   weight=weight)
+                   weight=weight, queued=True)
         print(f"clone {[rows, cols]} (copy ceiling): "
               f"{median_ms(lambda: x.clone()):.4f} ms")
         del x, got
@@ -957,27 +992,67 @@ def engine_eval():
 
 
 def distmat_scale(results):
-    """Phase 5: the distmat at Market-1501 scale."""
+    """Phase 5: the distmat at Market-1501 scale: the kernel against its
+    plain version (1e-5 of the largest entry); on q's first 500 rows both
+    against a float64 distmat (the kernel's error at most twice the plain
+    version's, plus 2^-23 of the largest |entry|); the times of the
+    kernel, the plain version and addmm beside the 3xTF32 and f32-core
+    bounds; and the mAP and CMC of the rankings by the two distmats, with
+    random ids as eval_bench makes them (printed only)."""
+    import numpy as np
     import torch
 
     from ieee_tpu_torch.ops.kernels.distmat import (
         euclidean_sq, euclidean_sq_plain)
+    from ieee_tpu_torch.ops.ranking import _device_rank
 
-    q, g = randn((3368, 2304), 11).abs(), randn((15913, 2304), 12).abs()
+    m, n, k = 3368, 15913, 2304
+    q, g = randn((m, k), 11).abs(), randn((n, k), 12).abs()
     got, want = euclidean_sq(q, g), euclidean_sq_plain(q, g)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     tol = 1e-5 * want.abs().max().item()
     ms = median_ms(lambda: euclidean_sq(q, g), iters=5)
     plain_ms = median_ms(lambda: euclidean_sq_plain(q, g), iters=5)
-    print(f"kernel distmat [3368, 15913, 2304]: max_abs_err {err:.3e} (tol "
-          f"{tol:.3e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+    lib_ms = median_ms(lambda: torch.addmm(
+        (q * q).sum(1)[:, None] + (g * g).sum(1)[None, :], q, g.t(),
+        alpha=-2.0), iters=5)
+    nbytes = 4.0 * (m * k + n * k + m * n)
+    tf32 = bound_ms(6.0 * m * n * k, nbytes, "tf32")
+    f32 = bound_ms(2.0 * m * n * k, nbytes, "f32")
+    print(f"kernel distmat {[m, n, k]}: max_abs_err {err:.3e} (tol "
+          f"{tol:.3e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms library "
+          f"{lib_ms:.4f} ms (addmm) bound {tf32[0]:.4f} ms (3xTF32, "
+          f"{tf32[1]}), f32 cores {f32[0]:.4f} ms ({f32[1]})")
     if err > tol:
         raise AssertionError(f"distmat at Market scale: {err} > {tol}")
+    q64, g64 = q[:500].double(), g.double()
+    ref = ((q64 * q64).sum(1)[:, None] + (g64 * g64).sum(1)[None, :]
+           - 2.0 * q64 @ g64.T)
+    err64 = (got[:500].double() - ref).abs().max().item()
+    plain64 = (want[:500].double() - ref).abs().max().item()
+    allow = 2 * plain64 + 2 ** -23 * ref.abs().max().item()
+    print(f"distmat vs float64 (500 x {n}): kernel {err64:.3e}, plain "
+          f"{plain64:.3e}, allowed {allow:.3e}")
+    if err64 > allow:
+        raise AssertionError(f"distmat less accurate than twice the plain "
+                             f"version's error: {err64} > {allow}")
+    del q64, g64, ref
+    rng = np.random.default_rng(0)
+    ids = [torch.as_tensor(rng.integers(0, hi, size), device="cuda")
+           for hi, size in ((750, m), (750, n), (6, m), (6, n))]
+    ranks = [_device_rank(d, *ids, 50) for d in (got, want)]
+    cmc_diff = (ranks[0][0] - ranks[1][0]).abs().max().item()
+    print(f"rankings by the kernel's and the plain distmat: mAP "
+          f"{float(ranks[0][1]):.6f} and {float(ranks[1][1]):.6f} (diff "
+          f"{abs(float(ranks[0][1]) - float(ranks[1][1])):.3e}), CMC max "
+          f"diff {cmc_diff:.3e}")
     results["distmat"]["cases"].append(
-        {"shape": [3368, 15913, 2304], "ms": ms, "plain_ms": plain_ms,
-         "library_ms": None, "bound_ms": None, "max_abs_err": err,
-         "weight": 0})
+        {"shape": [m, n, k], "ms": ms, "plain_ms": plain_ms,
+         "library_ms": lib_ms, "bound_ms": tf32[0], "bound_by": tf32[1],
+         "max_abs_err": err, "weight": 0})
+    del got, want, q, g
+    torch.cuda.empty_cache()
 
 
 def train_path(block: bool = False):
@@ -1158,7 +1233,7 @@ def engine_train():
 
 def run_tools():
     """Phase 8: each measurement tool's ``main()`` on the card; returns
-    the launch counts of each tool's run."""
+    the launch counts of each run, by the tool's name and arguments."""
     import importlib
 
     import torch
@@ -1166,24 +1241,29 @@ def run_tools():
     from ieee_tpu_torch.ops import kernels
 
     launches = {}
-    for name, argv, must in TOOLS:
+    for name, argv, must, must_not in TOOLS:
         tool = importlib.import_module(f"ieee_tpu_torch.tools.{name}")
-        print(f"tool {name} {' '.join(argv)}", flush=True)
+        run = " ".join([name] + argv)
+        print(f"tool {run}", flush=True)
         t0 = time.perf_counter()
         kernels.reset_launch_counts()
         tool.main(argv + ["--device", "cuda"])
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
-        launches[name] = counts
+        launches[run] = counts
         print(f"tool {name}: {time.perf_counter() - t0:.1f} s, launches "
               f"{ {k: v for k, v in counts.items() if v} }", flush=True)
         missing = [k for k in must if counts[k] <= 0]
         if missing:
-            raise AssertionError(f"tool {name} launched none of {missing}")
-        if name == "profile_train" and (
+            raise AssertionError(f"tool {run} launched none of {missing}")
+        extra = [k for k in must_not if counts[k]]
+        if extra:
+            raise AssertionError(f"tool {run} launched {extra} on the "
+                                 "plain path")
+        if must == TRAIN_KERNELS and (
                 len({counts[k] for k in TRAIN_KERNELS}) != 1
                 or counts["mm_stats"] % 33):
-            raise AssertionError(f"profile_train: train kernels not 33 per "
+            raise AssertionError(f"{run}: train kernels not 33 per "
                                  f"step: {counts}")
         torch.cuda.empty_cache()
     return launches

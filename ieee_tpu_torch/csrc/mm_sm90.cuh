@@ -45,6 +45,7 @@
 namespace {
 
 using sm90::desc_sw128;
+using sm90::fence_acc;
 using sm90::kBK;
 using sm90::kConsumerRegs;
 using sm90::kConsumers;
@@ -98,14 +99,6 @@ __device__ __forceinline__ void mm_produce(
     for (int b = 0; b < NB; ++b)
       sm90::tma_load_2d(st + L::W + 8192 * b, tm_w, bar, col0 + 64 * b, k0);
   }
-}
-
-// keeps the compiler from moving reads of acc above the wgmma wait that
-// completes it (the asynchronous writes are invisible to it)
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&acc)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(acc[i])::"memory");
 }
 
 // the consumers' mainloop: acc = the warpgroup's 64 rows x 64 NB columns

@@ -4,7 +4,8 @@
 // specialisation (setmaxnreg), ldmatrix fragment loads, and wgmma
 // m64n256k16 and m64n64k16 with A from registers (the RS form) or from a
 // K-major shared tile (the SS form) and B from shared memory through a
-// matrix descriptor, f32 accumulators in registers; the block shape the
+// matrix descriptor, f32 accumulators in registers (and m64n128k8 on tf32
+// tiles, both K-major, in the SS form); the block shape the
 // products share (a producer and two consumer warpgroups over 128 rows)
 // and its bf16 row epilogue (store_rows); on the host, the 2D tensor maps
 // the TMA loads read.
@@ -18,7 +19,9 @@
 // keeps ldmatrix conflict-free: the 8 row addresses of one 8x8 matrix fall
 // on 8 different chunk positions.
 //
-// Operand layouts (bf16); an SS-form A is a K-major tile of 64 rows:
+// Operand layouts (bf16; a tf32 tile is laid out as a K-major bf16 one,
+// 32 values to the 128-byte row, and its k8 step is the same 32 bytes);
+// an SS-form A is a K-major tile of 64 rows:
 //   - K-major (the reduction dimension contiguous, trans-b 0): rows are
 //     the N index, 64 reduction values per 128-byte row; 8-row atoms 1024
 //     bytes apart (SBO); a k16 step advances the start address by 32
@@ -89,6 +92,14 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving reads of acc above the wgmma wait that
+// completes it (the asynchronous writes are invisible to it)
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&acc)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(acc[i])::"memory");
 }
 
 // the dynamic shared memory base aligned up to 1024 bytes (the swizzle's
@@ -465,6 +476,49 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(1), "n"(TRANS_B));
+}
+
+// d (64 x 128 per warpgroup, f32) += A (64 x 8, tf32, K-major in shared
+// memory, descriptor a) * B (8 x 128, tf32, K-major, descriptor b); with
+// scale_d 0 the product overwrites d instead (a fresh sum). TF32 operands
+// must both be K-major (no transpose immediates); a k8 step is 32 bytes
+// along the 128-byte rows, as bf16's k16 step. The accumulator layout is
+// m64n256's first 64 registers. The card reads the top 19 bits of each
+// 32-bit operand (sign, exponent, 10 mantissa bits): the low 13 bits of
+// an f32 are dropped, a truncation.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_ss(float (&d)[64],
+                                                        uint64_t a,
+                                                        uint64_t b,
+                                                        int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
 // the two bf16 of a packed pair as f32 (low half first)

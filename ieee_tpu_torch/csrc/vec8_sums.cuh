@@ -22,12 +22,16 @@ __device__ __forceinline__ void load_vec8(const float* p, float v[8]) {
 
 using bf16 = __nv_bfloat16;
 
-// the 8 bf16 at p (16-byte aligned) as f32
-__device__ __forceinline__ void unpack8(const bf16* p, float f[8]) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
+// the 8 bf16 of a 16-byte vector as f32
+__device__ __forceinline__ void unpack8(const uint4& v, float f[8]) {
   const bf16* b = reinterpret_cast<const bf16*>(&v);
 #pragma unroll
   for (int e = 0; e < 8; ++e) f[e] = __bfloat162float(b[e]);
+}
+
+// the 8 bf16 at p (16-byte aligned) as f32
+__device__ __forceinline__ void unpack8(const bf16* p, float f[8]) {
+  unpack8(*reinterpret_cast<const uint4*>(p), f);
 }
 
 // 8 f32 rounded to nearest-even bf16, as one 16-byte vector

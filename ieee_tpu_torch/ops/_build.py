@@ -45,7 +45,7 @@ _F = ctypes.c_float
 # C signatures of csrc/*.cu; every function returns a cudaError_t as int
 # (ieee_wait_report: 1 if it wrote a report, else 0)
 _SIGNATURES = {
-    "ieee_distmat_f32": [_P, _P, _P, _I, _I, _I, _P],
+    "ieee_distmat_f32": [_P] * 6 + [_I] * 5 + [_P],
     "ieee_mm_affine_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "ieee_partpool": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "ieee_mm_stats_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

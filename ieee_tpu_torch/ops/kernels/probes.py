@@ -21,12 +21,14 @@ and launches the CUDA kernel (``csrc/probes.cu``; ``bn_mm``'s in
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import LAUNCHES
 from .. import _build
-from .matmul_bn import (_check_multiple_of_8, _cuda_operands, mm_stats,
-                        mm_stats_plain)
+from .matmul_bn import (_check_multiple_of_8, _cuda_operands, _sm_count,
+                        mm_stats, mm_stats_plain)
 
 __all__ = ["SCALE", "TILE_ROWS", "scale_factor", "scale_bf16",
            "scale_bf16_plain", "probe_mm_stats", "probe_mm_stats_plain",
@@ -40,10 +42,16 @@ SCALE = 1.0001
 TILE_ROWS = (512, 2048)
 
 
+@functools.lru_cache(maxsize=None)
 def scale_factor() -> float:
     """The factor as the probe applies it: ``SCALE`` rounded to bf16 on the
-    host, as ``jnp.bfloat16(1.0001)`` is (1.0)."""
+    host, as ``jnp.bfloat16(1.0001)`` is (1.0); computed once."""
     return torch.tensor(SCALE, dtype=_BF16).item()
+
+
+#: the vectors of 8 bf16 that one block of ``scale_bf16`` takes per round
+#: (256 threads x 4 loads in flight, csrc/probes.cu)
+_SCALE_ROUND = 256 * 4
 
 
 def _check_scale(x: torch.Tensor, tile_rows: int) -> None:
@@ -72,9 +80,12 @@ def scale_bf16(x: torch.Tensor, tile_rows: int) -> torch.Tensor:
     _check_multiple_of_8("scale_bf16", cols=cols)
     (x,) = _cuda_operands("scale_bf16", x)
     out = torch.empty_like(x)
-    # 8 blocks of 256 threads per SM: a full SM, every SM on every tile
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    blocks = max(1, min(8 * sms, -(-rows * cols // (8 * 256))))
+    # as many blocks as give each the same whole number of rounds of a
+    # tile, with at most 8 blocks of 256 threads (a full SM) per SM; an
+    # empty x gives no blocks, and the library returns before launching
+    rounds = -(-min(rows, tile_rows) * cols // (8 * _SCALE_ROUND))
+    per_block = max(1, -(-rounds // (8 * _sm_count(x.device.index))))
+    blocks = -(-rounds // per_block)
     lib = _build.load_library()
     _build.check(lib.ieee_scale_bf16(
         x.data_ptr(), out.data_ptr(), scale_factor(), rows, cols, tile_rows,

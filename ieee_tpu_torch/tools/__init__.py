@@ -14,6 +14,11 @@ PyTorch versions and times on the host clock).
   Market-1501 scale, and the plain vs fused eval forward.
 - ``loader_bench``: the train loader's batches/s against a step rate.
 
+Three have no JAX counterpart; they time the port's kernels at the main
+paths' shapes: ``block_bench`` (the block backward's product kernels),
+``mm_bench`` (the four fused 1x1 kernels) and ``kernel_bench`` (the
+distmat and ``scale_bf16``, per call, queued and on the device).
+
 Each tool's work is in functions that take shapes and iteration counts;
 ``main()`` calls them at the JAX tool's sizes.
 """

@@ -18,11 +18,12 @@ import time
 import torch
 
 __all__ = ["HBM_BPS", "PEAK", "parse_tool_args", "card_line",
-           "device_line", "median_ms", "bound_ms"]
+           "device_line", "median_ms", "queued_ms", "kernel_ms",
+           "short_name", "bound_ms"]
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, FLOP/s by type
 HBM_BPS = 3.35e12
-PEAK = {"bf16": 989e12, "f32": 67e12}
+PEAK = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
 
 
 def parse_tool_args(parser: argparse.ArgumentParser, argv=None):
@@ -80,6 +81,53 @@ def median_ms(fn, iters: int = 20, warmup: int = 3, device="cuda") -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def queued_ms(fn, device, iters: int) -> float:
+    """Median ms per call of 10 calls queued back to back (CUDA events),
+    or of single calls by the host clock on the CPU."""
+    fn()
+    if device.type != "cuda":
+        times = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+    torch.cuda.synchronize(device)
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 10)
+    return statistics.median(times)
+
+
+def kernel_ms(fn, calls: int = 5):
+    """[(device kernel, ms per call)] by torch.profiler, largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3 / calls)
+            for e in prof.key_averages() if e.self_device_time_total > 0]
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def short_name(key: str) -> str:
+    """A profiler kernel key without "void", the anonymous namespace and
+    the argument list."""
+    return key.replace("(anonymous namespace)::", "").replace(
+        "void ", "").split("(")[0]
 
 
 def bound_ms(flops: float, nbytes: float, kind: str):

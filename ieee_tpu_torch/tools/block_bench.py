@@ -27,13 +27,11 @@ Usage: python -m ieee_tpu_torch.tools.block_bench [--batch 128]
 from __future__ import annotations
 
 import argparse
-import statistics
-import time
 
 import torch
 
 from ..ops.kernels import block_bwd as bb
-from ._timing import parse_tool_args
+from ._timing import kernel_ms, parse_tool_args, queued_ms, short_name
 
 __all__ = ["STAGES", "bench", "step_profile", "main"]
 
@@ -45,51 +43,6 @@ STAGES = ((64, 32, 256, 64, 6), (32, 16, 512, 128, 9),
 _BLOCK_KEYS = ("Bn3Op", "Conv2Op", "conv2_prep", "Bn1Op", "bn3_d2",
                "bn3_dw", "tgemm_kernel", "rows_gemm_kernel", "reduce3",
                "mm_stats")
-
-
-def _queued_ms(fn, device, iters: int) -> float:
-    """Median ms per call of 10 calls queued back to back (CUDA events),
-    or of single calls by the host clock on the CPU."""
-    fn()
-    if device.type != "cuda":
-        times = []
-        for _ in range(iters):
-            t0 = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(times)
-    torch.cuda.synchronize(device)
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(10):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / 10)
-    return statistics.median(times)
-
-
-def _kernel_ms(fn, calls: int = 5):
-    """[(device kernel, ms per call)] by torch.profiler, largest first."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total / 1e3 / calls)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
-    return sorted(rows, key=lambda r: -r[1])
-
-
-def _short(key: str) -> str:
-    return key.replace("(anonymous namespace)::", "").replace(
-        "void ", "").split("(")[0]
 
 
 def bench(device, batch: int = 128, iters: int = 15) -> dict:
@@ -119,13 +72,13 @@ def bench(device, batch: int = 128, iters: int = 15) -> dict:
             "bn1_apply": lambda: bb.bn1_apply(d1, a1, x, d3, w1, v),
             "bn3_apply": lambda: bb.bn3_apply(d3, a3, a2, w3, v3, vf)}
         for name, fn in calls.items():
-            ms = _queued_ms(fn, device, iters)
+            ms = queued_ms(fn, device, iters)
             totals[name] += blocks * ms
             line = (f"{h}x{w} C {c} cm {cm} x{blocks}: {name} {ms:.4f} "
                     f"ms per call queued")
             if device.type == "cuda":
                 line += "; " + ", ".join(
-                    f"{_short(k)} {t:.4f}" for k, t in _kernel_ms(fn)[:4])
+                    f"{short_name(k)} {t:.4f}" for k, t in kernel_ms(fn)[:4])
             print(line, flush=True)
     print("per step (30 blocks), queued: " + ", ".join(
         f"{k} {t:.4f} ms" for k, t in totals.items()), flush=True)

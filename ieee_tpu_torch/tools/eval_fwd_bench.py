@@ -4,14 +4,18 @@ against the fused folded-BN head with the partpool kernel
 uint8 triplets at 256x128 already on the device, random weights.
 
 Counterpart of ``tools/eval_fwd_bench.py``. Both paths run the same model
-(built with ``fused_1x1``: its layer4 1x1 sites on the ``mm_affine``
-kernel, which the config leaves off by default, ``cuda.fused_1x1``) after
-the test transform; each is timed as the median of single calls (CUDA
-events) after warm-up, then the two features are compared. The JAX tool's
-third path, the int8 PTQ eval (``models/int8_eval.py``), is not ported yet
+after the test transform, built as the JAX tool builds it: without
+``fused_1x1`` (the config's default, ``cuda.fused_1x1``, off as in the JAX
+package). So the "plain" line is the plain forward, the JAX tool's "plain
+flax" line, and the "fused" line is the folded head with ``partpool``,
+whose trunks launch no ``mm_affine``. ``--fused`` builds the model with
+``fused_1x1=True``: both paths' layer4 1x1 sites then run the ``mm_affine``
+kernel. Each path is timed as the median of single calls (CUDA events)
+after warm-up, then the two features are compared. The JAX tool's third
+path, the int8 PTQ eval (``models/int8_eval.py``), is not ported yet
 (ROADMAP A.7); the tool says so on a line of its own.
 
-Usage: python -m ieee_tpu_torch.tools.eval_fwd_bench [batch]
+Usage: python -m ieee_tpu_torch.tools.eval_fwd_bench [batch] [--fused]
     [--device cuda]
 """
 
@@ -23,42 +27,41 @@ import numpy as np
 import torch
 
 from ._timing import median_ms, parse_tool_args
+from .profile_train import build_ieee
 
 __all__ = ["run", "main"]
 
 
 def run(batch: int = 100, device="cuda", height: int = 256,
-        width: int = 128, backbone_layers=None, iters: int = 10) -> dict:
+        width: int = 128, backbone_layers=None, iters: int = 10,
+        fused: bool = False) -> dict:
     from ..data.transforms import build_transforms
-    from ..models import build_model
     from ..models.fast_eval import build_fast_ieee_eval_step
 
     device = torch.device(device)
-    extra = {} if backbone_layers is None else {
-        "backbone_layers": tuple(backbone_layers)}
-    model = build_model("ieee3modalPart", 171, "margin", pretrained=False,
-                        device=device, seed=0, fused_1x1=True, **extra)
+    model = build_ieee(device, fused, 171, backbone_layers)
+    print(f"trunks: fused_1x1={fused}", flush=True)
     _, tfm_te = build_transforms(height, width, transforms=None)
     rng = np.random.default_rng(0)
     imgs = tuple(torch.from_numpy(rng.integers(
         0, 256, (batch, height, width, 3), dtype=np.uint8)).to(device)
         for _ in range(3))
 
-    fused = build_fast_ieee_eval_step(model, transform=tfm_te)
+    fast = build_fast_ieee_eval_step(model, transform=tfm_te)
 
     @torch.inference_mode()
     def plain(imgs):
         return model(tuple(tfm_te(m) for m in imgs))
 
     out = {}
-    for name, fn in (("plain", plain), ("fused", fused)):
+    for name, fn in (("plain", plain), ("fused", fast)):
         ms = median_ms(lambda: fn(imgs), iters, device=device)
         out[name] = ms
         print(f"{name}: {ms:.1f} ms/batch ({batch / ms * 1e3:.0f} "
               "triplets/s)", flush=True)
     print("int8 PTQ: not ported yet (ROADMAP A.7)")
     a = plain(imgs).float()
-    b = fused(imgs).float()
+    b = fast(imgs).float()
     err = ((a - b).abs().max() / a.abs().max().clamp_min(1e-6)).item()
     print(f"max rel deviation fused vs plain: {err:.4f}")
     if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
@@ -70,8 +73,12 @@ def run(batch: int = 100, device="cuda", height: int = 256,
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("batch", nargs="?", type=int, default=100)
+    parser.add_argument("--fused", action="store_true",
+                        help="build the model with fused_1x1 (layer4's 1x1 "
+                             "sites on mm_affine in both paths; off by "
+                             "default, as in the JAX tool)")
     args, device = parse_tool_args(parser, argv)
-    return run(args.batch, device)
+    return run(args.batch, device, fused=args.fused)
 
 
 if __name__ == "__main__":

@@ -24,8 +24,7 @@ import argparse
 import torch
 
 from ..ops.kernels import matmul_bn as mb
-from ._timing import parse_tool_args
-from .block_bench import _kernel_ms, _queued_ms, _short
+from ._timing import kernel_ms, parse_tool_args, queued_ms, short_name
 
 __all__ = ["KERNELS", "bench", "main"]
 
@@ -61,13 +60,13 @@ def bench(device, kernels=KERNELS, iters: int = 15,
                   "mm_bn_da": lambda: mb.mm_bn_da(d, y, vecs, w16, relu),
                   "mm_bn_dw": lambda: mb.mm_bn_dw(a, d, y, vecs, relu),
                   }[name]
-            ms = _queued_ms(fn, device, iters)
+            ms = queued_ms(fn, device, iters)
             totals[name] += count * ms
             line = (f"N {n} K {k} C {c} x{count}: {name} {ms:.4f} ms per "
                     f"call queued")
             if device.type == "cuda":
                 line += "; " + ", ".join(
-                    f"{_short(key)} {t:.4f}" for key, t in _kernel_ms(fn)[:2])
+                    f"{short_name(key)} {t:.4f}" for key, t in kernel_ms(fn)[:2])
             print(line, flush=True)
     for name, t in totals.items():
         if name == "mm_affine":

@@ -3,10 +3,15 @@
 Counterpart of ``tools/profile_train.py``, at bench.py's protocol: batch
 128 of ``synthetic_mm`` at 256x128 (171 pids, 4 instances), one fixed
 batch already on the device, SGD (lr 0.001, momentum 0.9, wd 5e-4), the
-fused 1x1 sites on (the config's default, the JAX model's choice on its
-chip). It prints wall-clock steps/s over ``--steps`` steps after 3
-warm-up steps (host clock around steps ending in a sync), then the
-``torch.profiler`` table over 3 more steps: device ms per step, the busy
+model built as the JAX tool builds it: without ``fused_1x1``, the config's
+default (``cuda.fused_1x1``, off as in the JAX package), so every 1x1
+conv+BN site runs through cuDNN and BatchNorm. ``--fused`` builds it with
+``fused_1x1=True`` instead: layer4's 1x1 sites, CIM and the reduce layer
+then run the fused train kernels (``mm_stats``, ``mm_bn_da``,
+``mm_bn_dw``; 33 launches of each per step). It prints wall-clock
+steps/s over ``--steps`` steps after 3 warm-up steps (host clock around
+steps ending in a sync), then the ``torch.profiler`` table over 3 more
+steps: device ms per step, the busy
 share of the profiled wall time, and the top ``--top`` kernels by device
 time. ``--trace-dir`` also writes the profiled steps as a Chrome trace
 (none by default). The JAX tool's ``--option`` (XLA compiler flags) has no
@@ -16,7 +21,7 @@ On the CPU (``--device cpu``) the table holds CPU operator times, not
 device kernels.
 
 Usage: python -m ieee_tpu_torch.tools.profile_train [batch] [--steps N]
-    [--top N] [--trace-dir DIR] [--device cuda]
+    [--top N] [--trace-dir DIR] [--fused] [--device cuda]
 """
 
 from __future__ import annotations
@@ -29,12 +34,26 @@ import torch
 
 from ._timing import parse_tool_args
 
-__all__ = ["profile_steps", "run", "main"]
+__all__ = ["build_ieee", "profile_steps", "run", "main"]
 
 
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def build_ieee(device, fused: bool = False, num_pids: int = 171,
+               backbone_layers=None):
+    """The tools' IEEE3modalPart (margin loss, random weights from seed 0)
+    on ``device``, with ``fused_1x1=fused``; ``backbone_layers`` cuts the
+    trunks' depth (the tests' small model)."""
+    from ..models import build_model
+
+    extra = {} if backbone_layers is None else {
+        "backbone_layers": tuple(backbone_layers)}
+    return build_model("ieee3modalPart", num_pids, "margin",
+                       pretrained=False, device=device, seed=0,
+                       fused_1x1=fused, **extra)
 
 
 def profile_steps(step, n: int = 2, top: int = 12, device="cuda",
@@ -77,26 +96,21 @@ def profile_steps(step, n: int = 2, top: int = 12, device="cuda",
 def run(batch: int = 128, steps: int = 10, top: int = 60,
         trace_dir: str = "", device="cuda", height: int = 256,
         width: int = 128, num_pids: int = 171, backbone_layers=None,
-        profile_n: int = 3) -> dict:
-    """Build the model and engine, time ``steps`` train steps after 3
-    warm-up steps, then profile ``profile_n`` steps and print the table.
-    ``backbone_layers`` cuts the trunks' depth (the tests' small model)."""
+        profile_n: int = 3, fused: bool = False) -> dict:
+    """Build the model (``build_ieee``) and engine, time ``steps`` train
+    steps after 3 warm-up steps, then profile ``profile_n`` steps and print
+    the table."""
     from ..data import ImageDataManager
     from ..engine import Image3MEngine
-    from ..models import build_model
     from ..optim import build_lr_scheduler, build_optimizer
 
     device = torch.device(device)
-    extra = {} if backbone_layers is None else {
-        "backbone_layers": tuple(backbone_layers)}
     dm = ImageDataManager(
         sources="synthetic_mm", height=height, width=width,
         batch_size_train=batch, batch_size_test=100, workers=0,
         train_sampler="RandomIdentitySampler", num_instances=4,
         num_pids=num_pids, imgs_per_pid=8, verbose=False, seed=0)
-    model = build_model("ieee3modalPart", num_pids, "margin",
-                        pretrained=False, device=device, seed=0,
-                        fused_1x1=True, **extra)
+    model = build_ieee(device, fused, num_pids, backbone_layers)
     opt = build_optimizer(model, optim="sgd", lr=0.001, momentum=0.9,
                           weight_decay=5e-4)
     sched = build_lr_scheduler("multi_step", stepsize=[20, 40],
@@ -108,7 +122,8 @@ def run(batch: int = 128, steps: int = 10, top: int = 60,
     def step():
         return eng.train_step(imgs, pids)
 
-    print("warming up ...", flush=True)
+    print(f"path: {'fused' if fused else 'plain'} (fused_1x1={fused}); "
+          "warming up ...", flush=True)
     for _ in range(3):
         step()
     _sync(device)
@@ -153,9 +168,13 @@ def main(argv=None) -> dict:
                              "here (none by default)")
     parser.add_argument("--top", type=int, default=60)
     parser.add_argument("--steps", type=int, default=10)
+    parser.add_argument("--fused", action="store_true",
+                        help="build the model with fused_1x1 (the fused "
+                             "train kernels; off by default, as in the JAX "
+                             "tool)")
     args, device = parse_tool_args(parser, argv)
     return run(batch=args.batch, steps=args.steps, top=args.top,
-               trace_dir=args.trace_dir, device=device)
+               trace_dir=args.trace_dir, device=device, fused=args.fused)
 
 
 if __name__ == "__main__":

@@ -28,6 +28,7 @@ from ieee_tpu.ops.pallas.matmul_bn import _vecs
 from ieee_tpu_torch.models.resnet import Bottleneck, ResNetTrunk
 from ieee_tpu_torch.ops import kernels
 from ieee_tpu_torch.ops.kernels import block_bwd as bb
+from torch_threads import one_torch_thread  # noqa: F401
 
 F32, BF16 = jnp.float32, jnp.bfloat16
 GRADS = "dx dk1 ds1 db1 dk2 ds2 db2 dk3 ds3 db3".split()

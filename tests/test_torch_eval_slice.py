@@ -27,6 +27,7 @@ from ieee_tpu_torch.models.weights import load_jax_variables
 from ieee_tpu_torch.ops import compute_distance_matrix, evaluate_rank
 
 from test_torch_model import _random_variables
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = dict(sources="synthetic_mm", height=96, width=32, batch_size_test=4,

@@ -35,6 +35,7 @@ from ieee_tpu_torch.ops.kernels.partpool import (
 )
 
 from test_pallas_kernels import _interpret_distmat
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _np(shape, seed, scale=1.0):
@@ -55,6 +56,57 @@ def test_distmat_plain_matches_pallas_interpret_and_jax(m, n, k):
     tol = 1e-5 * np.abs(plain_jax).max()
     np.testing.assert_allclose(ours, pallas, rtol=0, atol=tol)
     np.testing.assert_allclose(ours, plain_jax, rtol=0, atol=tol)
+
+
+def _tf32_rna(x):
+    """f32 rounded to TF32 (10 mantissa bits), ties away from zero: the
+    split pass's ``cvt.rna.tf32.f32``."""
+    bits = x.astype(np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _tf32_read(x):
+    """An f32 operand as the tensor cores read it in a TF32 product: its
+    low 13 mantissa bits dropped (truncation)."""
+    return (x.astype(np.float32).view(np.uint32)
+            & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _distmat_3xtf32(a, b):
+    """The distmat kernel's arithmetic (``csrc/distmat.cu``) in numpy: x =
+    hi + lo, hi = TF32(x) to nearest, lo = x - hi exact in f32 and read
+    truncated to TF32; a.b ~ lo_a.hi_b + hi_a.lo_b + hi_a.hi_b with f32
+    sums (lo_a.lo_b dropped); f32 norms; (qn + gn) - 2 a.b."""
+    parts = []
+    for x in (a, b):
+        hi = _tf32_rna(x)
+        lo = x - hi
+        assert np.array_equal(hi + lo, x)  # the split is exact in f32
+        parts.append((hi, _tf32_read(lo)))
+    (ah, al), (bh, bl) = parts
+    prod = (al @ bh.T + ah @ bl.T) + ah @ bh.T
+    return ((a * a).sum(1)[:, None] + (b * b).sum(1)[None, :]) - 2 * prod
+
+
+@pytest.mark.parametrize("m,n,k", [(64, 96, 32), (37, 300, 130)])
+def test_distmat_3xtf32_arithmetic_matches_pallas_interpret_and_jax(m, n,
+                                                                    k):
+    # the arithmetic of the card's kernel, not only the card, is sound:
+    # held to the JAX function and its Pallas kernel at the f32 parity
+    # test's tolerance
+    a, b = _np((m, k), 0), _np((n, k), 1)
+    ours = _distmat_3xtf32(a, b)
+    assert ours.dtype == np.float32
+    pallas = np.asarray(_interpret_distmat(jax_distmat_mod, a, b))
+    plain_jax = np.asarray(jax_euclid(jnp.asarray(a), jnp.asarray(b)))
+    tol = 1e-5 * np.abs(plain_jax).max()
+    np.testing.assert_allclose(ours, pallas, rtol=0, atol=tol)
+    np.testing.assert_allclose(ours, plain_jax, rtol=0, atol=tol)
+    # the hi.hi term alone (one TF32 product) is not f32-accurate here
+    hi = _tf32_rna(a) @ _tf32_rna(b).T
+    one = ((a * a).sum(1)[:, None] + (b * b).sum(1)[None, :]) - 2 * hi
+    assert np.abs(one - plain_jax).max() > tol
 
 
 # ------------------------------------------------------------------ partpool

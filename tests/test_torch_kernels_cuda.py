@@ -57,10 +57,18 @@ def _randn(shape, seed, device, scale=1.0):
                         device=device)
 
 
-# distmat: full-f32 FMA against cuBLAS f32 (no TF32); the two sum K products
-# in different orders, so the error is a few f32 ulps of the largest |entry|
+# distmat: the 3xTF32 kernel (csrc/distmat.cu: x = hi + lo, three TF32
+# products on the tensor cores into f32 sums) against cuBLAS f32 (no TF32);
+# both carry a few f32 ulps of the largest |entry| of error, in different
+# places. 170 x 340, 16 x 32 x 300, 836 x 836, 1 x 128 and 837 x 836 split
+# K (2-18 parts added in order by a third launch; the last two with an odd
+# m + n and an even n, the parts' float2 stores after the norms), the rest
+# do not; K = 19, 130 and 300 are ragged (the split pass pads K to 32 with
+# zeros), K = 0 gives zeros
 @pytest.mark.parametrize("m,n,k", [(836, 836, 2304), (170, 340, 2304),
-                                   (37, 300, 19), (1, 129, 130)])
+                                   (37, 300, 19), (1, 129, 130),
+                                   (16, 32, 300), (3, 5, 0),
+                                   (1, 128, 2304), (837, 836, 2304)])
 def test_distmat_kernel_matches_plain(cuda, m, n, k):
     q = _randn((m, k), 0, cuda)
     g = _randn((n, k), 1, cuda)
@@ -71,6 +79,49 @@ def test_distmat_kernel_matches_plain(cuda, m, n, k):
     want = euclidean_sq_plain(q, g)
     err = (got - want).abs().max().item()
     assert err <= 1e-5 * want.abs().max().item(), err
+
+
+def _features(shape, seed, device):
+    """A ReLU'd embedding: non-negative, about half of it zeros."""
+    return _randn(shape, seed, device).relu()
+
+
+# against a float64 distmat, on realistic features and on near-duplicates
+# (g = q + 1e-3 noise, where |q|^2 + |g|^2 - 2 q.g cancels): the kernel's
+# max error at most twice the plain version's, plus 2^-23 of the largest
+# |entry| so that a near-exact plain result does not make the check
+# degenerate
+@pytest.mark.parametrize("near", [False, True])
+@pytest.mark.parametrize("m,n,k", [(836, 836, 2304), (170, 340, 2304),
+                                   (37, 300, 19)])
+def test_distmat_kernel_as_accurate_as_plain_against_float64(cuda, m, n, k,
+                                                             near):
+    q = _features((m, k), 10, cuda)
+    if near:
+        g = q[torch.arange(n, device=cuda) % m] + 1e-3 * _randn(
+            (n, k), 11, cuda)
+    else:
+        g = _features((n, k), 11, cuda)
+    q64, g64 = q.double(), g.double()
+    ref = ((q64 * q64).sum(1)[:, None] + (g64 * g64).sum(1)[None, :]
+           - 2.0 * q64 @ g64.T)
+    err = (euclidean_sq(q, g).double() - ref).abs().max().item()
+    plain = (euclidean_sq_plain(q, g).double() - ref).abs().max().item()
+    assert err <= 2 * plain + 2 ** -23 * ref.abs().max().item(), (err,
+                                                                   plain)
+
+
+# two runs bit for bit the same, with a split over K (836 x 836: 5 parts;
+# 16 x 32 x 300: 2 parts at a ragged K; 1 x 128 and 837 x 836: an odd
+# m + n) and without (K = 19)
+@pytest.mark.parametrize("m,n,k", [(836, 836, 2304), (16, 32, 300),
+                                   (37, 300, 19), (1, 128, 2304),
+                                   (837, 836, 2304)])
+def test_distmat_kernel_runs_are_bit_identical(cuda, m, n, k):
+    q, g = _features((m, k), 12, cuda), _features((n, k), 13, cuda)
+    got, again = euclidean_sq(q, g), euclidean_sq(q, g)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
 
 
 # the forward kernels' (csrc/mm_sm90.cuh) tiling edges: N of 1, 129 and
@@ -464,7 +515,7 @@ def test_bottleneck_train_kernels_match_plain(cuda, b, h, w, c, cm):
 # 16384 x 2048 x 2048 product; plus ragged row counts and a small case.
 
 @pytest.mark.parametrize("rows,cols", [(8192, 8192), (1037, 8200),
-                                       (3, 16)])
+                                       (3, 16), (0, 16)])
 @pytest.mark.parametrize("tile", [512, 2048])
 def test_scale_bf16_kernel_matches_plain_bit_for_bit(cuda, rows, cols, tile):
     x = _randn((rows, cols), 30, cuda, scale=3.0).to(torch.bfloat16)
@@ -472,7 +523,8 @@ def test_scale_bf16_kernel_matches_plain_bit_for_bit(cuda, rows, cols, tile):
     got, again = scale_bf16(x, tile), scale_bf16(x, tile)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["scale_bf16"] == before + 2
-    assert got.data_ptr() != x.data_ptr()  # a new array, every byte written
+    # a new array, every byte written
+    assert x.numel() == 0 or got.data_ptr() != x.data_ptr()
     assert torch.equal(got, again)
     assert torch.equal(got, scale_bf16_plain(x, tile))
     assert torch.equal(got, x)  # bf16(1.0001) == 1

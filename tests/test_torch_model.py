@@ -35,6 +35,7 @@ from ieee_tpu_torch.models.weights import (
 from ieee_tpu_torch.ops import kernels
 
 from test_ieee_converter import _fake_reference_state_dict
+from torch_threads import one_torch_thread  # noqa: F401
 
 LAYERS = (1, 1, 1, 1)
 H, W = 96, 32

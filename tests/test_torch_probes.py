@@ -41,6 +41,7 @@ from ieee_tpu_torch.ops.kernels.probes import (
     scale_bf16_plain,
     scale_factor,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T = 128  # the Pallas tiles here (the tool's are 512)

@@ -14,6 +14,7 @@ from ieee_tpu_torch.ops import (
     eval_market1501_numpy,
     evaluate_rank,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _case(seed, num_q=40, num_g=120, num_pids=12, num_cams=4, dim=16):

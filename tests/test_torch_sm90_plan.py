@@ -1,9 +1,10 @@
 """The pure-Python planning around the Hopper kernels (``csrc/mm_bn_bwd.cu``,
-``csrc/bn_gemm_sm90.cu``, ``csrc/block_bwd_sm90.cu``, and
-``csrc/mm_bn_train.cu`` and ``csrc/mm_affine.cu`` on ``csrc/mm_sm90.cuh``):
-the dW kernels' splits of N into row ranges, the forward kernels' column
-tile, and the parsing of ``nvcc -Xptxas -v`` output that ``chip_smoke.py``
-prints. All run on the CPU in milliseconds; the kernels themselves are
+``csrc/bn_gemm_sm90.cu``, ``csrc/block_bwd_sm90.cu``, ``csrc/distmat.cu``,
+and ``csrc/mm_bn_train.cu`` and ``csrc/mm_affine.cu`` on
+``csrc/mm_sm90.cuh``): the dW kernels' splits of N into row ranges, the
+forward kernels' column tile, the distmat's split over K, and the
+parsing of ``nvcc -Xptxas -v`` output that ``chip_smoke.py`` prints. All
+run on the CPU in milliseconds; the kernels themselves are
 held to their plain versions on the card in
 ``tests/test_torch_kernels_cuda.py``.
 """
@@ -21,6 +22,15 @@ from ieee_tpu_torch.ops.kernels.block_bwd import (
     _bn3_width,
     _conv2_plan,
     _dw_width,
+)
+from ieee_tpu_torch.ops.kernels.distmat import (
+    DM_COLS,
+    DM_MIN_STEPS,
+    DM_ROWS,
+    DM_STEP,
+    _distmat_plan,
+    _kp,
+    _scratch_layout,
 )
 from ieee_tpu_torch.ops.kernels.matmul_bn import (
     DW_MIN_ROWS,
@@ -237,3 +247,57 @@ def test_kernel_resources_reads_registers_and_spills():
     assert dw == {"registers": 232, "spill_stores": 4, "spill_loads": 12}
     red = res["_Z19split_reduce_kernelPKfPfim"]
     assert red == {"registers": 10, "spill_stores": 0, "spill_loads": 0}
+
+
+# (m, n, K) of the distmat on the main paths: RGBNT201's test set, the
+# engine eval's 170 x 340, the CLI eval's 16 x 32 and Market-1501; then
+# the card tests' ragged K (19, 130: one and five 32-deep steps), a single
+# row, K = 0, and splits with an odd m + n (one query against 128 gallery
+# rows, 837 x 836)
+DISTMAT_SHAPES = [(836, 836, 2304), (170, 340, 2304), (16, 32, 2304),
+                  (3368, 15913, 2304), (37, 300, 19), (1, 129, 130),
+                  (5, 7, 0), (1, 128, 2304), (837, 836, 2304)]
+
+
+@pytest.mark.parametrize("m,n,k", DISTMAT_SHAPES)
+def test_distmat_plan_covers_k_in_nonempty_parts(m, n, k):
+    split, chunk = _distmat_plan(m, n, k, SMS)
+    kp = _kp(k)
+    assert kp >= k and kp % DM_STEP == 0 and kp - max(k, 1) < DM_STEP
+    steps = kp // DM_STEP
+    # every step in exactly one part, no part empty (the kernel checks the
+    # same and refuses a plan that breaks it)
+    assert split >= 1 and chunk >= 1
+    assert (split - 1) * chunk < steps <= split * chunk
+    parts = [range(z * chunk, min((z + 1) * chunk, steps))
+             for z in range(split)]
+    assert sorted(s for p in parts for s in p) == list(range(steps))
+    assert split == 1 or chunk >= DM_MIN_STEPS
+
+
+@pytest.mark.parametrize("m,n,k", DISTMAT_SHAPES)
+def test_distmat_scratch_regions_are_aligned_and_disjoint(m, n, k):
+    split = _distmat_plan(m, n, k, SMS)[0]
+    size, nrm, part = _scratch_layout(m, n, k, split)
+    # hi|lo rows, then the m + n norms, then split x m x n parts; each on a
+    # 256-byte boundary (64 floats), so the parts' float2 stores stay
+    # 8-byte aligned whatever the parity of m + n
+    assert nrm == (m + n) * 2 * _kp(k)
+    assert nrm % 64 == 0 and part % 64 == 0
+    assert part >= nrm + m + n
+    assert size == part + (split * m * n if split > 1 else 0)
+
+
+def test_distmat_plan_fills_the_card_at_the_eval_shapes():
+    def blocks(m, n, k):
+        return (-(-m // DM_ROWS) * -(-n // DM_COLS)
+                * _distmat_plan(m, n, k, SMS)[0])
+    # 836^2 has 49 tiles of 128 x 128: a split over K in 5 fills the 132
+    # SMs in two waves of 15 steps (3 parts: two waves of 24)
+    assert _distmat_plan(836, 836, 2304, SMS) == (5, 15)
+    assert blocks(836, 836, 2304) >= SMS
+    # Market-1501 (3375 tiles) runs without a split; the small eval
+    # calls split as far as 4-step parts allow
+    assert _distmat_plan(3368, 15913, 2304, SMS) == (1, 72)
+    assert _distmat_plan(170, 340, 2304, SMS) == (18, 4)
+    assert _distmat_plan(16, 32, 2304, SMS) == (18, 4)

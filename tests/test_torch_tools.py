@@ -15,9 +15,11 @@ import math
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 TOOLS = ("bw_probe", "bw_probe2", "fusion_probe", "roofline_probe",
          "profile_train", "eval_bench", "eval_fwd_bench", "loader_bench",
-         "block_bench", "mm_bench")
+         "block_bench", "mm_bench", "kernel_bench")
 
 
 def _tool(name):
@@ -111,6 +113,59 @@ def test_profile_train(capsys, tmp_path):
     assert math.isfinite(res["loss"]) and res["steps_per_s"] > 0
     assert 1 <= len(res["table"]) <= 5 and res["ms_per_step"] > 0
     assert (tmp_path / "trace.json").stat().st_size > 0
+
+
+def _fused_sites(model) -> int:
+    """The model's 1x1 conv+BN sites on the fused kernels: each Bottleneck's
+    fused cb1 and cb3 (with its downsample), each CIM and reduce layer
+    built as a FusedConvBN1x1."""
+    from ieee_tpu_torch.models.common import FusedConvBN1x1
+    from ieee_tpu_torch.models.resnet import Bottleneck
+
+    return sum(isinstance(m, FusedConvBN1x1)
+               + (int(m.fuse_cb1) + int(m.fuse_cb3)
+                  if isinstance(m, Bottleneck) else 0)
+               for m in model.modules())
+
+
+@pytest.mark.parametrize("name", ["profile_train", "eval_fwd_bench"])
+def test_tools_measure_the_reference_path_unless_fused(name, monkeypatch):
+    # as the JAX tools, which build the model without fused_1x1: the
+    # default run asks for the plain model, --fused for the fused one
+    tool = _tool(name)
+    asked = []
+    monkeypatch.setattr(tool, "run",
+                        lambda *args, **kw: asked.append(kw["fused"]))
+    tool.main(["--device", "cpu"])
+    tool.main(["--fused", "--device", "cpu"])
+    assert asked == [False, True]
+
+
+def test_tools_model_has_fused_sites_only_when_asked():
+    # the tools' model (profile_train.build_ieee, which eval_fwd_bench
+    # shares) at full width, one block per stage: no step is run
+    build = _tool("profile_train").build_ieee
+    assert _tool("eval_fwd_bench").build_ieee is build
+    plain = build("cpu", False, 4, (1, 1, 1, 1))
+    assert _fused_sites(plain) == 0
+    # per trunk layer4.0's cb1 and cb3 (with the downsample), then CIM's
+    # two convs and the reduce layer per modality
+    fused = build("cpu", True, 4, (1, 1, 1, 1))
+    assert _fused_sites(fused) == 3 * 2 + 3 * 3
+
+
+def test_kernel_bench(capsys):
+    res = _tool("kernel_bench").bench(
+        "cpu", iters=1, distmat_shapes=((16, 24, 19),), scale_rows=64)
+    assert set(res) == {("distmat", (16, 24, 19)), ("scale_bf16", 512),
+                        ("scale_bf16", 2048), ("torch.mul", 64),
+                        ("clone", 64)}
+    # per call and queued on the host clock; no device number on the CPU
+    assert all(math.isfinite(t[0]) and math.isfinite(t[1]) and t[2] is None
+               for t in res.values())
+    out = capsys.readouterr().out
+    assert "distmat 16x24x19: kernel" in out and "(3xTF32" in out
+    assert out.count("not measured device") == 6
 
 
 def test_eval_bench(capsys):

@@ -32,6 +32,7 @@ from ieee_tpu_torch.ops.kernels.matmul_bn import (
     mm_stats,
     mm_stats_plain,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _np(shape, seed, scale=1.0):

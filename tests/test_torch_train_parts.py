@@ -26,6 +26,7 @@ from ieee_tpu_torch.data.transforms import build_transforms, random_flip
 from ieee_tpu_torch.engine.image.softmax import _deep_ce
 from ieee_tpu_torch.losses import cross_entropy_loss, multi_modal_margin_loss
 from ieee_tpu_torch.optim import build_lr_scheduler, build_optimizer, set_lr
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _np(shape, seed, scale=1.0):

@@ -38,6 +38,7 @@ from ieee_tpu_torch.models.weights import load_jax_variables
 from ieee_tpu_torch.optim import build_lr_scheduler, build_optimizer, set_lr
 
 from test_torch_model import _random_variables
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LAYERS = (1, 1, 1, 1)
