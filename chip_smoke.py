@@ -24,7 +24,10 @@ Phases (any failure raises and exits non-zero):
    2304), a ragged K, and splits over K with an odd m + n (1 x 128, 837 x
    836), each twice (bit for bit), also queued, with its
    3xTF32 bound (the kernel's three TF32 products) and the f32-core one.
-   ``mm_affine`` runs at the 21
+   ``partpool`` runs at the eval head's call (a batch of 100, the
+   16x8x2048 map in f32, P 6, F 768), with a bf16 map, at batches of 37,
+   129 and 1, and on a 5x3 map with P 8, C 64 and F 40, each twice (bit
+   for bit), the first two also queued. ``mm_affine`` runs at the 21
    layer4 sites of an eval batch of 100 (7 per trunk), the CIM and reduce
    shapes, a ragged N and a ragged N, K and C, each twice (bit for bit),
    the batch's sites also with 10 calls queued, with a table of its times
@@ -38,7 +41,9 @@ Phases (any failure raises and exits non-zero):
    backward, against its plain version. The four block kernels run at the
    three stages the block path takes in a batch-128 step (layer1-3: 6, 9
    and 15 blocks per step over the three trunks), at layer4's width 512
-   and at a ragged batch, the three product kernels (``bn3_apply``,
+   and at a ragged batch (``reduce3`` also at a ragged batch on a 7x5 map
+   at C 8, 264 and 1032, and at C 264 over 16384 rows), the three product
+   kernels (``bn3_apply``,
    ``conv2_bwd``, ``bn1_apply``) also with 10 calls queued, with a table
    of their times per stage and their per-step lines; then the whole
    ``bottleneck_train`` op against ``plain=True``.
@@ -72,11 +77,11 @@ Phases (any failure raises and exits non-zero):
    same with ``block_megakernel``: also 30 launches of each block kernel)
    and plain: train triplets/s, peak device memory and a
    ``torch.profiler`` summary by kernel (both fused paths: also the
-   ``mm_stats`` kernel's device ms by name; fused+block: the device ms
-   of the product kernels of each of ``bn3_apply``, ``conv2_bwd`` (with its
-   operand pass) and ``bn1_apply``); and the first step of each kernel
-   path, from the same weights and batch, must agree with the plain one
-   (loss, and every gradient tensor's cosine).
+   ``mm_stats`` kernel's device ms by name; fused+block: ``reduce3``'s
+   device ms and those of the product kernels of each of ``bn3_apply``,
+   ``conv2_bwd`` (with its operand pass) and ``bn1_apply``); and the
+   first step of each kernel path, from the same weights and batch, must
+   agree with the plain one (loss, and every gradient tensor's cosine).
 8. The measurement tools (``ieee_tpu_torch/tools/``), each tool's
    ``main()`` in-process at its defaults on the card (``profile_train``
    with ``--steps 3``), and ``profile_train`` and ``eval_fwd_bench`` also
@@ -87,9 +92,9 @@ Phases (any failure raises and exits non-zero):
    step) with ``--fused``, ``eval_bench`` the distmat, ``eval_fwd_bench``
    partpool and no mm_affine at its default, both with ``--fused``,
    ``block_bench`` the three block product kernels, ``mm_bench`` the
-   four 1x1 kernels, ``kernel_bench`` the distmat and ``scale_bf16``
-   (per call, queued and device times). They print the bandwidth and
-   matmul rates the card reaches.
+   four 1x1 kernels, ``kernel_bench`` the distmat, ``scale_bf16``,
+   ``reduce3`` and ``partpool`` (per call, queued and device times). They
+   print the bandwidth and matmul rates the card reaches.
 
 Each phase prints its seconds, and the run its total. The line before the
 last is the JSON list of kernels; the last line is ``{"ok": true,
@@ -162,7 +167,8 @@ TOOLS = (("bw_probe", [], ("scale_bf16",), ()),
          ("block_bench", [], ("conv2_bwd", "bn1_apply", "bn3_apply"), ()),
          ("mm_bench", ["--iters", "3"], ("mm_stats", "mm_affine",
                                         "mm_bn_da", "mm_bn_dw"), ()),
-         ("kernel_bench", ["--iters", "10"], ("distmat", "scale_bf16"), ()))
+         ("kernel_bench", ["--iters", "10"], ("distmat", "scale_bf16",
+                                              "reduce3", "partpool"), ()))
 # blocks on the block path per train step (10 per trunk, 3 trunks)
 BLOCKS_PER_STEP = 30
 # least cosine between a fused and a plain step's gradient tensor (phase
@@ -198,6 +204,11 @@ BLOCK_SITES = ((128, 64, 32, 256, 64, 6),    # layer1.1-2
 # checked but outside the per-step sums: layer4's width 512 (not selected;
 # the kernels have no width limit) and a ragged batch
 BLOCK_EXTRA = ((128, 16, 8, 2048, 512, 0), (3, 16, 8, 256, 64, 0))
+# reduce3 also at (B, H, W, C): a ragged batch on an odd map (B = 3 at 7x5:
+# N = 105, one short row range) at C of 8, 264 and 1032, and C = 264 over
+# many row ranges (N = 16384, the last short)
+REDUCE3_EXTRA = ((3, 7, 5, 8), (3, 7, 5, 264), (3, 7, 5, 1032),
+                 (128, 16, 8, 264))
 
 
 def die(msg: str, code: int = 2):
@@ -311,26 +322,39 @@ def check_kernels(results):
               f"cores {f32[0]:.4f} ms ({f32[1]})")
 
     # partpool: the eval head's call (B=100, 16x8x2048 f32 map, P=6 with
-    # overlapping stripes, 2048->768), a bf16 map and a ragged batch; the
-    # pooled rows round to bf16 in both, so allow 1e-2 of the output scale.
-    # No single PyTorch call pools stripes and projects
-    for i, (b, dtype) in enumerate(((100, torch.float32),
-                                    (100, torch.bfloat16),
-                                    (37, torch.float32))):
-        x = randn((b, 16, 8, 2048), 3).abs().to(dtype)
-        w = randn((2048, 768), 4, 2048 ** -0.5)
-        s, t = randn((768,), 5).abs() + 0.5, randn((768,), 6)
-        got = fused_partpool_project(x, w, s, t, parts=6)
-        want = fused_partpool_project_plain(x, w, s, t, parts=6)
+    # overlapping stripes, 2048->768), a bf16 map, ragged batches (37, 129:
+    # M = B (P+1) off the product's 128-row tile; 1), and a small map with
+    # H < P, P = 8, C = 64 and F = 40 (a pooling chunk and a column tile
+    # partly used), each twice (bit for bit); the pooled rows round to bf16
+    # in both, so allow 1e-2 of the output scale. No single PyTorch call
+    # pools stripes and projects
+    for i, (b, h, w, c, f, parts, dtype) in enumerate((
+            (100, 16, 8, 2048, 768, 6, torch.float32),
+            (100, 16, 8, 2048, 768, 6, torch.bfloat16),
+            (37, 16, 8, 2048, 768, 6, torch.float32),
+            (129, 16, 8, 2048, 768, 6, torch.float32),
+            (1, 16, 8, 2048, 768, 6, torch.bfloat16),
+            (37, 5, 3, 64, 40, 8, torch.float32))):
+        x = randn((b, h, w, c), 3).abs().to(dtype)
+        wt = randn((c, f), 4, c ** -0.5)
+        s, t = randn((f,), 5).abs() + 0.5, randn((f,), 6)
+        got = fused_partpool_project(x, wt, s, t, parts=parts)
+        again = fused_partpool_project(x, wt, s, t, parts=parts)
+        want = fused_partpool_project_plain(x, wt, s, t, parts=parts)
         torch.cuda.synchronize()
-        flops = 2.0 * b * 7 * 128 * 2048 + 2.0 * b * 7 * 2048 * 768
-        nbytes = x.element_size() * x.numel() + 4 * (2048 * 768 + 2 * 768
-                                                     + b * 7 * 768)
-        record("partpool", [b, 16, 8, 2048, 768, str(dtype)[6:]], got, want,
-               1e-2 * max(1.0, want.abs().max().item()),
-               lambda: fused_partpool_project(x, w, s, t, 6),
-               lambda: fused_partpool_project_plain(x, w, s, t, 6), None,
-               bound_ms(flops, nbytes, "bf16"), weight=int(i == 0))
+        if not torch.equal(got, again):
+            raise AssertionError(f"partpool {[b, h, w, c, f]}: two runs "
+                                 "differ")
+        r = parts + 1
+        flops = 2.0 * b * r * h * w * c + 2.0 * b * r * c * f
+        nbytes = x.element_size() * x.numel() + 4 * (c * f + 2 * f
+                                                     + b * r * f)
+        record("partpool", [b, h, w, c, f, parts, str(dtype)[6:]], got,
+               want, 1e-2 * max(1.0, want.abs().max().item()),
+               lambda: fused_partpool_project(x, wt, s, t, parts),
+               lambda: fused_partpool_project_plain(x, wt, s, t, parts),
+               None, bound_ms(flops, nbytes, "bf16"), weight=int(i == 0),
+               queued=i < 2)
 
     # mm_affine: layer4's sites of an eval batch of 100 (16x8 map) and
     # EVAL_EXTRA's, each twice (bit for bit); bf16 outputs may differ by
@@ -755,6 +779,24 @@ def check_block_kernels(record):
                weight=blocks, iters=iters, queued=True)
         del got, want, da1, xr, want_dx
         torch.cuda.empty_cache()
+
+    # reduce3 alone at REDUCE3_EXTRA: ragged batches on an odd map and
+    # channel counts off its 128-channel tile, twice (bit for bit)
+    for b, h, w, c in REDUCE3_EXTRA:
+        dy, y, a3 = (randn((b, h, w, c), s).to(bf16) for s in (40, 41, 42))
+        mean, rstd = 0.1 * randn((c,), 52), randn((c,), 53).abs() + 0.5
+        args = (dy, y, a3, mean, rstd)
+        got = twice("reduce3", lambda: bb.reduce3(*args))
+        want = bb.reduce3_plain(*args)
+        g = rows_of(want[0]).float().abs()
+        xh = bb._xhat(rows_of(a3).float(), mean, rstd).abs()
+        sums_close("reduce3", [b, h, w, c], "S3", got[1], want[1],
+                   torch.stack([g.sum(0), (g * xh).sum(0)]))
+        n = b * h * w
+        record("reduce3", [b, h, w, c], got[0].float(), want[0].float(),
+               0.0, lambda: bb.reduce3(*args),
+               lambda: bb.reduce3_plain(*args), None,
+               bound_ms(7.0 * n * c, 8.0 * n * c + 16.0 * c, "f32"))
 
 
 def check_block_op():
@@ -1186,7 +1228,11 @@ def engine_train():
                     short = key.replace("(anonymous namespace)::", "")
                     print(f"  mm_stats: {ms:.3f} device ms/step over {cnt} "
                           f"launches of {short.split('(')[0]}")
-        if block:  # each block kernel's products (not its sum kernels)
+        if block:  # reduce3, and each block kernel's products (not its
+            # sum kernels)
+            r3 = [(cnt, ms) for key, cnt, ms in rows if "reduce3" in key]
+            print(f"  reduce3: {sum(r[1] for r in r3):.3f} device ms/step "
+                  f"over {sum(r[0] for r in r3)} launches")
             for kname, keys in BLOCK_PRODUCTS:
                 prods = [(cnt, ms) for key, cnt, ms in rows
                          if any(k in key for k in keys)]

@@ -28,27 +28,12 @@
 // version's (and JAX's) bf16 multiply. cols % 8 == 0 (the wrapper checks);
 // any row count runs.
 
-#include "vec8_sums.cuh"  // unpack8, pack8
+#include "vec8_sums.cuh"  // unpack8, pack8, load_stream, store_stream
 
 namespace {
 
 constexpr int SCALE_THREADS = 256;
 constexpr int kLoads = 4;  // 16-byte loads in flight per thread
-
-__device__ __forceinline__ uint4 load_stream(const uint4* p) {
-  uint4 v;
-  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, "
-               "[%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "l"(p));
-  return v;
-}
-
-__device__ __forceinline__ void store_stream(uint4* p, const uint4& v) {
-  asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"l"(p),
-               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
-               : "memory");
-}
 
 template <int TILE_ROWS>
 __global__ void __launch_bounds__(SCALE_THREADS)

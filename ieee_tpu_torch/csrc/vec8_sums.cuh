@@ -1,9 +1,10 @@
 // What the streaming kernels and the kernels with sums across blocks share:
-// the 8-wide bf16/f32 vector helpers (block_bwd.cu's reduce3,
-// block_bwd_sm90.cu's operand pass, probes.cu's scale) and the two in-order
-// sum kernels. Sums across blocks are per-block partials added in a fixed
-// order by a second small kernel (no float atomics), so two runs agree bit
-// for bit.
+// the 8-wide bf16/f32 vector helpers and the streaming 16-byte loads and
+// stores (block_bwd.cu's reduce3, block_bwd_sm90.cu's operand pass,
+// partpool.cu's pooling pass, probes.cu's scale) and the two in-order sum
+// kernels. Sums across blocks are per-block partials added in a fixed order
+// (by a second small kernel here, or by the last block of reduce3's grid;
+// no float atomics), so two runs agree bit for bit.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -21,6 +22,24 @@ __device__ __forceinline__ void load_vec8(const float* p, float v[8]) {
 }
 
 using bf16 = __nv_bfloat16;
+
+// a 16-byte load of data read once: through the non-coherent path and kept
+// out of L1 (ld.global.nc.L1::no_allocate)
+__device__ __forceinline__ uint4 load_stream(const void* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, "
+               "[%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+// a 16-byte store of data not read again here (st.global.cs: evict first)
+__device__ __forceinline__ void store_stream(void* p, const uint4& v) {
+  asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"l"(p),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
 
 // the 8 bf16 of a 16-byte vector as f32
 __device__ __forceinline__ void unpack8(const uint4& v, float f[8]) {

@@ -47,11 +47,11 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "ieee_distmat_f32": [_P] * 6 + [_I] * 5 + [_P],
     "ieee_mm_affine_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "ieee_partpool": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "ieee_partpool": [_P, _I] + [_P] * 6 + [_I] * 6 + [_P],
     "ieee_mm_stats_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ieee_mm_bn_da_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ieee_mm_bn_dw_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "ieee_block_reduce3": [_P] * 7 + [_I] * 3 + [_P],
+    "ieee_block_reduce3": [_P] * 9 + [_I] * 4 + [_P],
     "ieee_block_bn3_apply": [_P] * 11 + [_I] * 5 + [_P],
     "ieee_block_conv2_bwd": [_P] * 13 + [_I] * 6 + [_P],
     "ieee_block_bn1_apply": [_P] * 9 + [_I] * 5 + [_P],

@@ -51,7 +51,8 @@ import torch.nn.functional as F
 
 from . import LAUNCHES
 from .. import _build
-from .matmul_bn import EPS, _check_multiple_of_8, _cuda_operands
+from .matmul_bn import (EPS, _check_multiple_of_8, _cuda_operands,
+                        _sm_count)
 
 __all__ = ["reduce3", "reduce3_plain", "bn3_apply", "bn3_apply_plain",
            "conv2_bwd", "conv2_bwd_plain", "bn1_apply", "bn1_apply_plain",
@@ -166,10 +167,11 @@ def bn1_apply_plain(d1, a1, x, d3, w1, v1):
 
 def _check_maps(name, **maps):
     """Every map (B, H, W, *) with the same B, H, W and device."""
-    shapes = {k: tuple(v.shape) for k, v in maps.items()}
     first = next(iter(maps.values()))
-    if any(v.ndim != 4 or v.shape[:3] != first.shape[:3]
-           or v.device != first.device for v in maps.values()):
+    lead, dev = first.shape[:3], first.device
+    if any(v.ndim != 4 or v.shape[:3] != lead or v.device != dev
+           for v in maps.values()):
+        shapes = {k: tuple(v.shape) for k, v in maps.items()}
         raise ValueError(f"{name}: maps must be (B, H, W, C) on one device "
                          f"with the same B, H, W, got {shapes}")
 
@@ -245,6 +247,43 @@ def _bn1_plan(n: int, cin: int, cm: int, sms: int = 132):
     return _dw_ranges(n, -(-cm // 128) * -(-cin // width), width, sms)
 
 
+#: reduce3 (csrc/block_bwd.cu): a block owns one range of rows of a tile
+#: of R3_TILE channels, R3_BLOCKS_PER_SM blocks an SM fill the card in one
+#: wave, and a range is at least R3_MIN_ROWS rows (one round of each
+#: thread's 4 rows in flight over the block's 16 row lanes)
+R3_TILE = 128
+R3_BLOCKS_PER_SM = 2
+R3_MIN_ROWS = 64
+
+
+def _reduce3_plan(n: int, c: int, sms: int = 132):
+    """(tiles, ranges, rows): reduce3's grid is ``tiles`` channel tiles x
+    ``ranges`` contiguous ranges of ``rows`` rows (the last may be short,
+    none is empty), one wave of R3_BLOCKS_PER_SM blocks an SM where the
+    tiles allow it."""
+    tiles = -(-c // R3_TILE)
+    ranges = max(1, sms * R3_BLOCKS_PER_SM // tiles)
+    rows = max(R3_MIN_ROWS, -(-n // ranges))
+    return tiles, -(-n // rows), rows
+
+
+#: (device index, stream) -> (partials, tickets) of reduce3: its last
+#: block of a tile resets the tile's ticket, so the scratch is kept (the
+#: calls on one stream are ordered) and grows with the largest call
+_R3_SCRATCH: dict = {}
+
+
+def _reduce3_scratch(dev, stream: int, floats: int, tiles: int):
+    key = (dev.index, stream)
+    part, tickets = _R3_SCRATCH.get(key, (None, None))
+    if part is None or part.numel() < floats:
+        part = torch.empty(floats, dtype=torch.float32, device=dev)
+    if tickets is None or tickets.numel() < tiles:
+        tickets = torch.zeros(tiles, dtype=torch.int32, device=dev)
+    _R3_SCRATCH[key] = part, tickets
+    return part, tickets
+
+
 def _f32(*shape, device):
     return torch.empty(shape, dtype=torch.float32, device=device)
 
@@ -259,20 +298,18 @@ def reduce3(dy, y, a3, mean3, rstd3):
     if dy.device.type == "cpu":
         return reduce3_plain(dy, y, a3, mean3, rstd3)
     _check_multiple_of_8("reduce3", C=c)
-    (dy, y, a3, vec), lib, stream = _kernel_operands(
-        "reduce3", (dy, y, a3), (torch.stack([mean3, rstd3]),), ())
+    (dy, y, a3, mean3, rstd3), lib, stream = _kernel_operands(
+        "reduce3", (dy, y, a3), (mean3, rstd3), ())
     n = dy.numel() // c
-    # rows per block: about eight blocks per SM over the channel blocks
-    cblocks = -(-c // 256)
-    rows = max(64, min(2048, -(-n * cblocks // (8 * 132) // 64) * 64))
     dev = dy.device
+    tiles, ranges, rows = _reduce3_plan(n, c, _sm_count(dev.index))
+    part, tickets = _reduce3_scratch(dev, stream, ranges * 2 * c, tiles)
     d3 = torch.empty_like(dy)
     s3 = _f32(2, c, device=dev)
-    part = _f32(max(1, -(-n // rows)), 2, c, device=dev)
     _build.check(lib.ieee_block_reduce3(
-        dy.data_ptr(), y.data_ptr(), a3.data_ptr(), vec.data_ptr(),
-        d3.data_ptr(), s3.data_ptr(), part.data_ptr(), n, c, rows, stream),
-        "reduce3")
+        dy.data_ptr(), y.data_ptr(), a3.data_ptr(), mean3.data_ptr(),
+        rstd3.data_ptr(), d3.data_ptr(), s3.data_ptr(), part.data_ptr(),
+        tickets.data_ptr(), n, c, ranges, rows, stream), "reduce3")
     LAUNCHES["reduce3"] += 1
     return d3, s3
 

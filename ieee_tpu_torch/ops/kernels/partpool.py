@@ -1,9 +1,11 @@
 """Fused part pooling + projection (kernel 3).
 
 Counterpart of ``ieee_tpu/ops/pallas/partpool.py:fused_partpool_project``:
-the IEEE eval head's ``global/part avgpool -> 1x1 conv -> BN -> ReLU`` chain
-in one pass, ``out[b, p] = relu(pool_p(x[b]) @ W * s + t)`` with row 0 the
-global mean and rows 1..P the adaptive stripes.
+the IEEE eval head's ``global/part avgpool -> 1x1 conv -> BN -> ReLU`` chain,
+``out[b, p] = relu(pool_p(x[b]) @ W * s + t)`` with row 0 the global mean
+and rows 1..P the adaptive stripes. On the card one call runs
+``csrc/partpool.cu``: a pooling pass over the whole card into bf16 pooled
+rows, then their product with W on wgmma.
 """
 
 from __future__ import annotations
@@ -15,9 +17,17 @@ import torch
 
 from . import LAUNCHES
 from .. import _build
+from .matmul_bn import (_check_multiple_of_8, _cuda_operands, _mm_plan,
+                        _sm_count)
 
 __all__ = ["fused_partpool_project", "fused_partpool_project_plain",
            "fold_bn", "pool_matrix"]
+
+#: the pooling pass (csrc/partpool.cu): a block owns one sample and a
+#: chunk of POOL_LANES 16-byte vectors of channels, POOL_POSITION_LANES
+#: position lanes deep
+POOL_LANES = 32
+POOL_POSITION_LANES = 8
 
 
 def fold_bn(scale, bias, mean, var, eps: float = 1e-5):
@@ -77,6 +87,17 @@ def _check(x, w, s, t, parts) -> None:
         raise ValueError("x, w, s and t must share a device")
 
 
+def _partpool_plan(b: int, parts: int, c: int, f: int, itemsize: int,
+                   sms: int = 132):
+    """(pooling blocks, channels a pooling block owns, rows M of the
+    product, the product's column width): the pooling pass runs one block
+    per sample and chunk of channels; the product is (M = b (parts + 1),
+    C) @ (C, F) in 128-row tiles of ``_mm_plan``'s width."""
+    chunk = POOL_LANES * (16 // itemsize)
+    m = b * (parts + 1)
+    return b * -(-c // chunk), chunk, m, _mm_plan(m, f, sms)
+
+
 def fused_partpool_project(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
                            t: torch.Tensor, parts: int = 6) -> torch.Tensor:
     """x (B, H, W, C) f32 or bf16, w (C, F), s/t (F,) -> (B, parts+1, F) f32.
@@ -89,24 +110,25 @@ def fused_partpool_project(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
         raise ValueError(f"no partpool kernel for device {x.device}")
     b, h, wd, c = x.shape
     f = w.shape[1]
-    if c % 2 or f % 2:
-        raise ValueError(f"partpool kernel needs even C and F, got {c}, {f}")
+    _check_multiple_of_8("partpool", C=c, F=f)
     if x.dtype not in (torch.float32, torch.bfloat16):
         x = x.float()
-    smem = 4 * (parts + 1) * (h * wd + c)
+    _, chunk, m, width = _partpool_plan(b, parts, c, f, x.element_size(),
+                                        _sm_count(x.device.index))
+    smem = 4 * (POOL_POSITION_LANES * chunk + (parts + 1) * h * wd)
     if smem > 227 * 1024:
         raise ValueError(f"partpool kernel: {smem} bytes of shared memory "
                          "exceed the 227 KB a block can use")
-    x = x.contiguous()
-    w = w.to(torch.bfloat16).contiguous()
-    s = s.float().contiguous()
-    t = t.float().contiguous()
+    x, w, s, t = _cuda_operands("partpool", x, w.to(torch.bfloat16),
+                                s.float(), t.float())
     pool = pool_matrix(h, wd, parts, x.device)
     lib = _build.load_library()
+    pooled = torch.empty((m, c), dtype=torch.bfloat16, device=x.device)
     out = torch.empty((b, parts + 1, f), dtype=torch.float32, device=x.device)
     _build.check(lib.ieee_partpool(
         x.data_ptr(), int(x.dtype == torch.bfloat16), pool.data_ptr(),
-        w.data_ptr(), s.data_ptr(), t.data_ptr(), out.data_ptr(),
-        b, parts + 1, h * wd, c, f, _build.stream_ptr(x.device)), "partpool")
+        w.data_ptr(), s.data_ptr(), t.data_ptr(), pooled.data_ptr(),
+        out.data_ptr(), b, parts + 1, h * wd, c, f, width // 64,
+        _build.stream_ptr(x.device)), "partpool")
     LAUNCHES["partpool"] += 1
     return out

@@ -28,6 +28,7 @@ from ieee_tpu_torch.ops.kernels.matmul_bn import (
     mm_affine_act_plain,
 )
 from ieee_tpu_torch.ops.kernels.partpool import (
+    POOL_POSITION_LANES,
     fold_bn,
     fused_partpool_project,
     fused_partpool_project_plain,
@@ -146,6 +147,58 @@ def test_partpool_plain_matches_pallas_interpret(b, dtype):
     # same rounding points (bf16 map, f32 pooling, bf16 pooled rows and W,
     # f32 product); a pooled sum that differs in its last f32 bit may round
     # to the neighbouring bf16 value, one 2^-8 step of that input
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-2 * np.abs(want).max())
+    assert np.abs(got - want).mean() < 1e-4 * np.abs(want).max()
+
+
+def _bf16(a):
+    return torch.tensor(a).to(torch.bfloat16).float().numpy()
+
+
+def _partpool_kernel_arithmetic(x, w, s, t, parts):
+    """The card kernel's arithmetic (csrc/partpool.cu) in numpy: the map
+    rounded to bf16; per position lane q (positions q, q + L, ...) a chain
+    of f32 fused multiply-adds pool[r, i] * x + acc in position order (the
+    product exact in float64, one rounding); the lanes added in order; the
+    pooled rows rounded to bf16; their product with bf16(W) summed exactly
+    and rounded once to f32 (the wgmma's f32 sums differ from it by their
+    order only); then relu(f32(f32(acc * s) + t))."""
+    b, h, wd, c = x.shape
+    lanes = POOL_POSITION_LANES
+    pool = pool_matrix(h, wd, parts).numpy().astype(np.float64)
+    xb = _bf16(x).reshape(b, h * wd, c).astype(np.float64)
+    acc = np.zeros((lanes, b, parts + 1, c), np.float32)
+    for i in range(h * wd):
+        q = i % lanes
+        acc[q] = (pool[None, :, i, None] * xb[:, None, i, :]
+                  + acc[q]).astype(np.float32)
+    pooled = np.zeros((b, parts + 1, c), np.float32)
+    for q in range(lanes):
+        pooled = pooled + acc[q]
+    proj = (_bf16(pooled).astype(np.float64)
+            @ _bf16(w).astype(np.float64)).astype(np.float32)
+    return np.maximum((proj * s).astype(np.float32) + t, np.float32(0))
+
+
+@pytest.mark.parametrize("b,h,w,c,f", [(2, 16, 8, 128, 32),
+                                       (3, 5, 3, 64, 40),
+                                       (2, 1, 4, 64, 16)])
+def test_partpool_kernel_arithmetic_matches_pallas_interpret(b, h, w, c, f):
+    # H = 16, P = 6: the 256x128 head's overlapping stripes, 16 positions a
+    # lane; H = 5 < P: every stripe one or two rows; H = 1: every stripe the
+    # whole map, fewer positions than lanes
+    parts = 6
+    x = np.abs(_np((b, h, w, c), 20))
+    wt, s = _np((c, f), 21, c ** -0.5), np.abs(_np((f,), 22)) + 0.5
+    t = _np((f,), 23)
+    want = np.asarray(jax_partpool(jnp.asarray(x), jnp.asarray(wt),
+                                   jnp.asarray(s), jnp.asarray(t),
+                                   parts=parts))
+    got = _partpool_kernel_arithmetic(x, wt, s, t, parts)
+    assert got.shape == want.shape == (b, parts + 1, f)
+    # test_partpool_plain_matches_pallas_interpret's bounds: a pooled sum
+    # taken in another order may round to the neighbouring bf16 value
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=1e-2 * np.abs(want).max())
     assert np.abs(got - want).mean() < 1e-4 * np.abs(want).max()

@@ -161,12 +161,25 @@ def test_mm_affine_kernel_matches_plain(cuda, n, k, c, relu):
 
 # partpool: same rounding points; pooled rows are rounded to bf16 in both,
 # so a pooled value whose f32 sum differs in the last bit may round to a
-# neighbouring bf16 value: bound the error by 1e-2 of the output scale
+# neighbouring bf16 value: bound the error by 1e-2 of the output scale.
+# Batches of 1, 37, 100 (the eval head's) and 129 (M = B (P+1) off the
+# product's 128-row tile), f32 and bf16 maps, P of 1, 6 (overlapping
+# stripes at H = 16) and 8, C of 64 and 2048 (one pooling chunk partly
+# used; 16 or 8 chunks), F of 16, 40 and 768 (the product's 64-wide
+# column tile partly used), H < P and a 1x1 map
 @pytest.mark.parametrize("b,h,w,c,f,parts,dtype", [
     (100, 16, 8, 2048, 768, 6, torch.float32),
     (37, 16, 8, 2048, 768, 6, torch.bfloat16),
     (3, 6, 2, 64, 32, 6, torch.float32),
-    (5, 4, 2, 32, 16, 6, torch.float32)])
+    (5, 4, 2, 32, 16, 6, torch.float32),
+    (100, 16, 8, 2048, 768, 6, torch.bfloat16),
+    (129, 16, 8, 2048, 768, 6, torch.float32),
+    (1, 16, 8, 2048, 768, 6, torch.float32),
+    (1, 16, 8, 64, 16, 1, torch.bfloat16),
+    (37, 16, 8, 64, 40, 8, torch.float32),
+    (129, 5, 3, 64, 40, 8, torch.bfloat16),
+    (37, 1, 1, 2048, 768, 1, torch.float32),
+    (100, 16, 8, 64, 768, 8, torch.bfloat16)])
 def test_partpool_kernel_matches_plain(cuda, b, h, w, c, f, parts, dtype):
     x = _randn((b, h, w, c), 6, cuda).abs().to(dtype)
     wt = _randn((c, f), 7, cuda, scale=c ** -0.5)
@@ -174,8 +187,10 @@ def test_partpool_kernel_matches_plain(cuda, b, h, w, c, f, parts, dtype):
     t = _randn((f,), 9, cuda)
     before = kernels.LAUNCHES["partpool"]
     got = fused_partpool_project(x, wt, s, t, parts=parts)
+    again = fused_partpool_project(x, wt, s, t, parts=parts)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["partpool"] == before + 1
+    assert kernels.LAUNCHES["partpool"] == before + 2
+    assert torch.equal(got, again)  # sums in a fixed order
     want = fused_partpool_project_plain(x, wt, s, t, parts=parts)
     assert got.shape == want.shape == (b, parts + 1, f)
     err = (got - want).abs().max().item()
@@ -385,7 +400,17 @@ def _run_twice(name, fn):
     return got
 
 
-@pytest.mark.parametrize("b,h,w,c,cm", BLOCK_SHAPES)
+# reduce3 also at layer2 and layer3 of a batch-128 step, a ragged batch on
+# an odd map (B = 3 at 7x5: N = 105, one short row range) at C of 8, 264
+# and 1032 (a 64-channel tile mostly or partly past C), and C = 264 and
+# 1032 over many row ranges (N = 16384 and 8192, the last range short)
+REDUCE3_SHAPES = BLOCK_SHAPES + [
+    (128, 32, 16, 512, 128), (128, 16, 8, 1024, 256), (3, 7, 5, 8, 8),
+    (3, 7, 5, 264, 8), (3, 7, 5, 1032, 8), (128, 16, 8, 264, 8),
+    (64, 16, 8, 1032, 8)]
+
+
+@pytest.mark.parametrize("b,h,w,c,cm", REDUCE3_SHAPES)
 def test_reduce3_kernel_matches_plain(cuda, b, h, w, c, cm):
     m, v, _ = _block_inputs(b, h, w, c, cm, cuda)
     mean, rstd = v["v3"][1], v["v3"][2]
@@ -393,6 +418,11 @@ def test_reduce3_kernel_matches_plain(cuda, b, h, w, c, cm):
                                                       m["a3"], mean, rstd))
     want_d3, want_s3 = bb.reduce3_plain(m["dy"], m["y"], m["a3"], mean, rstd)
     assert torch.equal(d3, want_d3)  # a mask and a copy: exact
+    # the tiles' tickets were reset: a call at another shape, then this one
+    # again, gives the same sums bit for bit
+    bb.reduce3(m["dy"][:1], m["y"][:1], m["a3"][:1], mean, rstd)
+    _, s3_again = bb.reduce3(m["dy"], m["y"], m["a3"], mean, rstd)
+    assert torch.equal(s3, s3_again)
     g = bb._rows(want_d3).float().abs()
     xh = bb._xhat(bb._rows(m["a3"]).float(), mean, rstd).abs()
     _sums_close(s3, want_s3, torch.stack([g.sum(0), (g * xh).sum(0)]), "S3")

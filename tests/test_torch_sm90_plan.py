@@ -1,8 +1,10 @@
 """The pure-Python planning around the Hopper kernels (``csrc/mm_bn_bwd.cu``,
 ``csrc/bn_gemm_sm90.cu``, ``csrc/block_bwd_sm90.cu``, ``csrc/distmat.cu``,
-and ``csrc/mm_bn_train.cu`` and ``csrc/mm_affine.cu`` on
-``csrc/mm_sm90.cuh``): the dW kernels' splits of N into row ranges, the
-forward kernels' column tile, the distmat's split over K, and the
+``csrc/block_bwd.cu``, ``csrc/partpool.cu``, and ``csrc/mm_bn_train.cu``
+and ``csrc/mm_affine.cu`` on ``csrc/mm_sm90.cuh``): the dW kernels' splits
+of N into row ranges, the forward kernels' column tile, the distmat's split
+over K, reduce3's grid of channel tiles and row ranges, partpool's pooling
+grid and product tiles, and the
 parsing of ``nvcc -Xptxas -v`` output that ``chip_smoke.py`` prints. All
 run on the CPU in milliseconds; the kernels themselves are
 held to their plain versions on the card in
@@ -17,11 +19,15 @@ from ieee_tpu_torch.ops.kernels.block_bwd import (
     BN3_MIN_ROWS,
     BN3_ROW_STEP,
     CONV2_MAX_ROWS,
+    R3_BLOCKS_PER_SM,
+    R3_MIN_ROWS,
+    R3_TILE,
     _bn1_plan,
     _bn3_plan,
     _bn3_width,
     _conv2_plan,
     _dw_width,
+    _reduce3_plan,
 )
 from ieee_tpu_torch.ops.kernels.distmat import (
     DM_COLS,
@@ -43,6 +49,7 @@ from ieee_tpu_torch.ops.kernels.matmul_bn import (
     _dw_plan,
     _mm_plan,
 )
+from ieee_tpu_torch.ops.kernels.partpool import POOL_LANES, _partpool_plan
 
 SMS = 132
 
@@ -301,3 +308,66 @@ def test_distmat_plan_fills_the_card_at_the_eval_shapes():
     assert _distmat_plan(3368, 15913, 2304, SMS) == (1, 72)
     assert _distmat_plan(170, 340, 2304, SMS) == (18, 4)
     assert _distmat_plan(16, 32, 2304, SMS) == (18, 4)
+
+
+# (N, C): reduce3 at layer1-3 of a batch-128 step, ragged batches (B = 3
+# at 7x5 and at 16x8), one row, and C off the 128-channel tile (8, 264,
+# 1032) or with more tiles than one wave holds (C = 40000)
+@pytest.mark.parametrize("n,c", [
+    (262144, 256), (65536, 512), (16384, 1024), (105, 256), (105, 8),
+    (105, 264), (105, 1032), (384, 256), (1, 8), (16384, 264),
+    (8192, 1032), (262143, 256), (1000, 40000)])
+def test_reduce3_plan_covers_every_row_once_in_one_wave(n, c):
+    tiles, ranges, rows = _reduce3_plan(n, c, sms=SMS)
+    assert tiles * R3_TILE >= c > (tiles - 1) * R3_TILE
+    # row ranges [r rows, (r + 1) rows) cover [0, n) once, none empty
+    assert ranges >= 1 and rows >= R3_MIN_ROWS
+    assert (ranges - 1) * rows < n <= ranges * rows
+    cover = [range(r * rows, min(n, (r + 1) * rows)) for r in range(ranges)]
+    assert all(len(r) > 0 for r in cover)
+    assert sum(len(r) for r in cover) == n
+    # one wave of R3_BLOCKS_PER_SM blocks an SM, unless one range per tile
+    # is already more
+    assert tiles * ranges <= max(tiles, SMS * R3_BLOCKS_PER_SM)
+
+
+def test_reduce3_plan_fills_the_card_at_the_block_path_stages():
+    # layer1-3 of a batch-128 step: 2, 4 and 8 tiles of 128 channels, the
+    # ranges filling 264 block slots (two an SM)
+    assert _reduce3_plan(262144, 256, SMS) == (2, 132, 1986)
+    assert _reduce3_plan(65536, 512, SMS) == (4, 66, 993)
+    assert _reduce3_plan(16384, 1024, SMS) == (8, 33, 497)
+    for n, c in ((262144, 256), (65536, 512), (16384, 1024)):
+        tiles, ranges, _ = _reduce3_plan(n, c, SMS)
+        assert tiles * ranges == SMS * R3_BLOCKS_PER_SM
+
+
+# partpool at batches of 1, 37, 100 (the eval head's) and 129, with the
+# head's map and P, P of 1 and 8, C of 64 and F of 16 and 40
+@pytest.mark.parametrize("b", [1, 37, 100, 129])
+@pytest.mark.parametrize("parts,c,f", [(6, 2048, 768), (1, 64, 16),
+                                       (8, 64, 40)])
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_partpool_plan_covers_the_pooled_rows_and_the_output(
+        b, parts, c, f, itemsize):
+    blocks, chunk, m, width = _partpool_plan(b, parts, c, f, itemsize, SMS)
+    # the pooling pass: one block per sample and chunk of channels, a chunk
+    # POOL_LANES 16-byte vectors wide
+    assert chunk == POOL_LANES * 16 // itemsize
+    chunks = blocks // b
+    assert blocks == b * chunks and chunks * chunk >= c > (chunks - 1) * chunk
+    # the product: M = b (parts + 1) pooled rows in 128-row tiles, F in
+    # tiles of width (64, 128 or 256); the last tile of each is partial at
+    # most
+    assert m == b * (parts + 1)
+    assert width in MM_WIDTHS and width == _mm_plan(m, f, SMS)
+    row_tiles, col_tiles = -(-m // MM_ROWS), -(-f // width)
+    assert (row_tiles - 1) * MM_ROWS < m <= row_tiles * MM_ROWS
+    assert (col_tiles - 1) * width < f <= col_tiles * width
+
+
+def test_partpool_plan_at_the_eval_heads_call():
+    # B = 100, a 16x8x2048 f32 map, F 768, P 6: 1600 pooling blocks of 128
+    # channels, then 700 x 768 in 6 x 12 tiles of 128 x 64
+    assert _partpool_plan(100, 6, 2048, 768, 4, SMS) == (1600, 128, 700, 64)
+    assert _partpool_plan(100, 6, 2048, 768, 2, SMS) == (800, 256, 700, 64)

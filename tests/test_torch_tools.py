@@ -156,16 +156,22 @@ def test_tools_model_has_fused_sites_only_when_asked():
 
 def test_kernel_bench(capsys):
     res = _tool("kernel_bench").bench(
-        "cpu", iters=1, distmat_shapes=((16, 24, 19),), scale_rows=64)
+        "cpu", iters=1, distmat_shapes=((16, 24, 19),), scale_rows=64,
+        reduce3_stages=((2, 4, 2, 16, 6), (1, 3, 5, 8, 9)),
+        partpool_call=(3, 4, 2, 16, 8, 6))
     assert set(res) == {("distmat", (16, 24, 19)), ("scale_bf16", 512),
                         ("scale_bf16", 2048), ("torch.mul", 64),
-                        ("clone", 64)}
+                        ("clone", 64), ("reduce3", (2, 4, 2, 16)),
+                        ("reduce3", (1, 3, 5, 8)), ("reduce3", "step"),
+                        ("partpool", "float32"), ("partpool", "bfloat16")}
     # per call and queued on the host clock; no device number on the CPU
     assert all(math.isfinite(t[0]) and math.isfinite(t[1]) and t[2] is None
                for t in res.values())
     out = capsys.readouterr().out
     assert "distmat 16x24x19: kernel" in out and "(3xTF32" in out
-    assert out.count("not measured device") == 6
+    assert "reduce3 per step (15 blocks): kernel" in out
+    assert "partpool B 3 4x2x16 -> 8, P 6, bfloat16 map: kernel" in out
+    assert out.count("not measured device") == 11
 
 
 def test_eval_bench(capsys):
