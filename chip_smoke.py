@@ -95,6 +95,25 @@ Phases (any failure raises and exits non-zero):
    four 1x1 kernels, ``kernel_bench`` the distmat, ``scale_bf16``,
    ``reduce3`` and ``partpool`` (per call, queued and device times). They
    print the bandwidth and matmul rates the card reaches.
+9. Ablation train: the ablation configs through the CLI at 256x128 and
+   full depth with ``cuda.fused_1x1 True``, on ``synthetic_mm`` cut to 8
+   ids x 4 images (4 steps of batch 8 an epoch), random weights. Counts
+   set to 0 before each run and read after it, and read around each
+   epoch: ``configs/rgbnt_base_softmax.yaml`` (no CIM, CA or REM; the
+   softmax engine) for 2 epochs with ``train.fixbase_epoch 1`` (its
+   ``open_layers``, the classifiers): over the fixbase epoch every frozen
+   parameter and every frozen BN's running statistics, the fused sites'
+   among them, must stay bit for bit and no frozen parameter may gain an
+   SGD moment; each epoch's train-kernel launches must equal what the
+   code implies (``fused_sites``: the model's fused 1x1 sites per forward,
+   times the steps and micro-batches; no backward reaches a fused site
+   while only the classifiers are open). Then a resume of that run from
+   its last checkpoint for one more epoch: it must start at epoch 3 from
+   the checkpoint's weights and optimizer state. Then
+   ``configs/rgbnt_cim_softmax.yaml`` for 1 epoch with ``data.k_tfm 2
+   train.accum_steps 2`` (two micro-batches of 8 a step). Last,
+   ``ablation_sweep --fused`` at batch 128 with 5 timed steps a variant:
+   each variant's triplets/s, and the launches its sites imply.
 
 Each phase prints its seconds, and the run its total. The line before the
 last is the JSON list of kernels; the last line is ``{"ok": true,
@@ -171,6 +190,11 @@ TOOLS = (("bw_probe", [], ("scale_bf16",), ()),
                                               "reduce3", "partpool"), ()))
 # blocks on the block path per train step (10 per trunk, 3 trunks)
 BLOCKS_PER_STEP = 30
+# phase 9: the ablation configs, and the short synthetic set they train on
+# (8 ids x 4 images: 4 steps of the configs' batch 8 an epoch)
+ABLATION = {name: os.path.join(ROOT, "configs", f"rgbnt_{name}_softmax.yaml")
+            for name in ("base", "cim")}
+ABLATION_DATA = {"num_pids": 8, "imgs_per_pid": 4}
 # least cosine between a fused and a plain step's gradient tensor (phase
 # 7): bf16 rounding noise in the early trunk layers' gradients at batch 128
 # (measured on an H100: 0.84 fused vs plain; each bf16 path against the f32
@@ -1277,6 +1301,191 @@ def engine_train():
             raise AssertionError(f"{a} and plain train steps disagree")
 
 
+def fused_sites(model):
+    """(forward, backward): the fused 1x1 sites one train step of
+    ``model`` runs forward, and those whose backward runs, by the code's
+    own gates: per Bottleneck (``models/resnet.py``) cb1 when ``fuse_cb1``,
+    cb3 and the downsample when ``fuse_cb3``, unless the block takes the
+    block path; in the head (``models/ieee3modal.py``) each fused convOne
+    and convAvgRest once and each fused reduce layer twice (the global
+    feature, then the parts). The global feature reaches the loss only
+    through REM: without REM no gradient reaches that call."""
+    from ieee_tpu_torch.models.common import FusedConvBN1x1
+    from ieee_tpu_torch.models.resnet import Bottleneck
+
+    n = 0
+    for m in model.modules():
+        if isinstance(m, Bottleneck) and not m.megakernel:
+            n += m.fuse_cb1 + m.fuse_cb3 * (1 + (m.downsample is not None))
+    for attr in ("convOne", "convAvgRest"):
+        n += sum(isinstance(m, FusedConvBN1x1)
+                 for m in getattr(model, attr, ()))
+    reduce = sum(isinstance(m, FusedConvBN1x1) for m in model.reduce_layer)
+    return n + 2 * reduce, n + (2 if model.using_REM else 1) * reduce
+
+
+def fused_site_bns(model) -> set:
+    """The BatchNorms of those sites (``fused_sites``), by id."""
+    from ieee_tpu_torch.models.common import FusedConvBN1x1
+    from ieee_tpu_torch.models.resnet import Bottleneck
+
+    out = set()
+    for m in model.modules():
+        if isinstance(m, Bottleneck) and not m.megakernel:
+            out.update(id(bn) for bn, on in (
+                (m.bn1, m.fuse_cb1), (m.bn3, m.fuse_cb3),
+                (m.downsample and m.downsample[1], m.fuse_cb3)) if on and bn)
+        elif isinstance(m, FusedConvBN1x1):
+            out.add(id(m.layers[1]))
+    return out
+
+
+def ablation_train():
+    """Phase 9: the ablation configs through the CLI (fixbase, resume,
+    k_tfm and accumulation), then ``ablation_sweep``."""
+    import shutil
+
+    import torch
+
+    from ieee_tpu_torch import main_multimodal
+    from ieee_tpu_torch.engine import Engine
+    from ieee_tpu_torch.engine.engine import is_open, named_units
+    from ieee_tpu_torch.models import IEEE3modalPart
+    from ieee_tpu_torch.ops import kernels
+    from ieee_tpu_torch.tools import ablation_sweep
+
+    save_dir = os.path.join(ROOT, "log", "chip_smoke_ablation")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    epochs, first = [], {}
+    real_train = Engine.train
+
+    def train(self, fixbase_epoch=0, open_layers=None, **kw):
+        # around each epoch: its launches, and under fixbase the frozen
+        # units' state and moments
+        model, opt = self.model, self.optimizer
+        fixbase = self.epoch < fixbase_epoch and bool(open_layers)
+        if not epochs:  # the run's first epoch: what it starts from
+            first["epoch"] = self.epoch
+            first["state"] = {k: v.detach().cpu().clone()
+                              for k, v in model.state_dict().items()}
+            first["moments"] = len(opt.state)
+        frozen = {name: {k: v.clone() for k, v in unit.state_dict().items()}
+                  for name, unit in named_units(model)
+                  if fixbase and not is_open(name, open_layers)}
+        before = kernels.launch_counts()
+        real_train(self, fixbase_epoch=fixbase_epoch,
+                   open_layers=open_layers, **kw)
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        fwd, bwd = (n * self.accum_steps * len(self.train_loader)
+                    for n in fused_sites(model))
+        # the fused sites all lie before fc_* and classifier_*: a backward
+        # reaches them only when one of their units, or one before, is open
+        upstream = [n for n, _ in named_units(model)
+                    if not n.startswith(("fc_", "classifier_"))]
+        if fixbase and not any(is_open(n, open_layers) for n in upstream):
+            bwd = 0
+        want = {"mm_stats": fwd, "mm_bn_da": bwd, "mm_bn_dw": bwd}
+        got = {k: after[k] - before[k] for k in TRAIN_KERNELS}
+        rec = {"epoch": self.epoch + 1, "fixbase": fixbase,
+               "steps": len(self.train_loader), "got": got, "want": want}
+        if frozen:
+            params = {id(p) for n in frozen
+                      for p in dict(named_units(model))[n].parameters()}
+            now = {name: dict(named_units(model))[name].state_dict()
+                   for name in frozen}
+            moved = [f"{n}.{k}" for n, sd in frozen.items()
+                     for k, v in sd.items() if not torch.equal(now[n][k], v)]
+            fused_bn = sum(id(m) in fused_site_bns(model)
+                           for n in frozen
+                           for m in dict(named_units(model))[n].modules())
+            rec.update(frozen_units=len(frozen), frozen_moved=moved,
+                       fused_site_bns_checked=fused_bn,
+                       frozen_moments=sum(id(p) in params
+                                          for p in opt.state))
+        epochs.append(rec)
+        print(f"ablation epoch: {rec}", flush=True)
+
+    orig_kwargs = main_multimodal.imagedata_kwargs
+
+    def cli(name, *opts):
+        kernels.reset_launch_counts()
+        epochs.clear()
+        first.clear()
+        rank1 = main_multimodal.main([
+            "--config-file", ABLATION[name], "--device", "cuda",
+            "model.pretrained", "False",
+            "data.sources", "['synthetic_mm']",
+            "data.targets", "['synthetic_mm']",
+            "data.height", "256", "data.width", "128",
+            "data.save_dir", os.path.join(save_dir, name),
+            "train.print_freq", "4", "cuda.fused_1x1", "True", *opts])
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        print(f"ablation {name} {' '.join(opts)}: rank1 {rank1:.4f}, "
+              f"launches {counts}", flush=True)
+        bad = [r for r in epochs if r["got"] != r["want"]
+               or r.get("frozen_moved") or r.get("frozen_moments")]
+        if bad or not 0.0 <= rank1 <= 1.0:
+            raise AssertionError(f"ablation {name}: {bad or rank1}")
+        missing = [k for k in TRAIN_KERNELS + ("mm_affine", "distmat")
+                   if counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"ablation {name}: kernels not launched: "
+                                 f"{missing}")
+        return [dict(r) for r in epochs], dict(first)
+
+    Engine.train = train
+    main_multimodal.imagedata_kwargs = lambda cfg: {**orig_kwargs(cfg),
+                                                    **ABLATION_DATA}
+    try:
+        base, _ = cli("base", "train.max_epoch", "2",
+                      "train.fixbase_epoch", "1")
+        fix = base[0]
+        if not (fix["fixbase"] and fix["frozen_units"]
+                and fix["fused_site_bns_checked"] and not base[1]["fixbase"]):
+            raise AssertionError(f"fixbase epoch not checked: {base}")
+        ckpt = os.path.join(save_dir, "base", "model", "model.pth.tar-2")
+        saved = torch.load(ckpt, map_location="cpu", weights_only=False)
+        resumed, start = cli("base", "train.max_epoch", "3",
+                             "model.resume", ckpt)
+        same = all(torch.equal(start["state"][k], v)
+                   for k, v in saved["state_dict"].items())
+        print(f"ablation resume: starts at epoch {start['epoch'] + 1}, "
+              f"weights as saved {same}, {start['moments']} SGD moments "
+              f"(saved {len(saved['optimizer']['state'])})")
+        if (start["epoch"] != 2 or not same or [r["epoch"] for r in resumed]
+                != [3] or start["moments"] != len(
+                    saved["optimizer"]["state"])):
+            raise AssertionError("resume did not restore epoch 2's state")
+        cli("cim", "train.max_epoch", "1", "data.k_tfm", "2",
+            "train.accum_steps", "2")
+    finally:
+        Engine.train = real_train
+        main_multimodal.imagedata_kwargs = orig_kwargs
+
+    # the sweep at batch 128: 3 warm-up and 5 timed steps a variant
+    kernels.reset_launch_counts()
+    recs = ablation_sweep.main(["128", "5", "--fused", "--device", "cuda",
+                                "--out", os.path.join(save_dir,
+                                                      "ABLATION.json")])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    with torch.device("meta"):
+        sites = [fused_sites(IEEE3modalPart(fused_1x1=True, **flags))
+                 for _, flags in ablation_sweep.VARIANTS]
+    for r in recs:
+        print(f"ablation_sweep {r['variant']}: {r['triplets_per_sec']} "
+              f"triplets/s ({r['ms_per_step']} ms/step, batch 128, fused), "
+              f"loss {r['loss_first']} -> {r['loss_last']}")
+    fwd, bwd = (8 * sum(s[i] for s in sites) for i in (0, 1))
+    want = {"mm_stats": fwd, "mm_bn_da": bwd, "mm_bn_dw": bwd}
+    got = {k: counts[k] for k in TRAIN_KERNELS}
+    if got != want or not all(math.isfinite(r["loss_last"]) for r in recs):
+        raise AssertionError(f"ablation_sweep launched {got}, want {want}")
+    shutil.rmtree(save_dir, ignore_errors=True)  # 5 GB of checkpoints
+
+
 def run_tools():
     """Phase 8: each measurement tool's ``main()`` on the card; returns
     the launch counts of each run, by the tool's name and arguments."""
@@ -1396,6 +1605,9 @@ def main():
     t0 = time.perf_counter()
     tool_counts = run_tools()
     print(f"phase tools: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ablation_train()
+    print(f"phase ablation train: {time.perf_counter() - t0:.1f} s")
 
     # each kernel's reported numbers: the weighted sum of its cases, where
     # the weight is how often the case runs in the reported unit: distmat

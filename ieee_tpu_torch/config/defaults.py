@@ -83,8 +83,9 @@ def get_default_config() -> ConfigNode:
     cfg.train.open_layers = ["classifier"]
     # The training knobs below carry the JAX package's meaning (see
     # ieee_tpu/config/defaults.py), so every config loads to the same values
-    # in both packages. Not ported yet, and refused when asked for: fixbase
-    # (fixbase_epoch > 0), accum_steps > 1 (ROADMAP A.11, A.16).
+    # in both packages: fixbase (fixbase_epoch, open_layers,
+    # fixbase_bn_freeze, fixbase_bn_eval) and accum_steps are the engine's
+    # (engine/engine.py)
     cfg.train.fixbase_bn_freeze = False
     cfg.train.fixbase_bn_eval = True
     cfg.train.staged_lr = False

@@ -10,9 +10,12 @@ The train transform ports ``random_flip`` (horizontal, p = 0.5 per image).
 Its draws come from a ``torch.Generator`` the caller passes (the engine
 holds one per device, seeded from ``cfg.train.seed``); they are not the
 JAX package's ``jax.random`` draws, so tests feed both the same flip mask.
-The other train transforms of the JAX package (crop, colour jitter, erase,
-patch, PCA lighting) and ``k_tfm`` > 1 are not ported yet: asking for them
-raises when the train transform is called (ROADMAP A.8 and A.11).
+With ``k_tfm`` > 1 it makes K independent draws per image and returns
+them as (K, B, 3, H, W) (``ieee_tpu/data/transforms.py:388-397``); the
+engine folds them into the batch. The other train transforms of the JAX
+package (crop, colour jitter, erase, patch, PCA lighting) are not ported
+yet: asking for them raises when the train transform is called (ROADMAP
+A.4).
 """
 
 from __future__ import annotations
@@ -65,7 +68,8 @@ def build_transforms(height, width, transforms="random_flip", norm_mean=None,
                      **kwargs) -> Tuple[Callable, Callable]:
     """(train_fn, test_fn) as ``ieee_tpu``'s ``build_transforms``:
     ``train_fn(batch, generator)`` draws its augmentation from
-    ``generator`` (on the batch's device); ``test_fn(batch)``."""
+    ``generator`` (on the batch's device), ``k_tfm`` draws of it stacked on
+    a leading axis when ``k_tfm`` > 1; ``test_fn(batch)``."""
     del height, width, kwargs
     if transforms is None:
         transforms = []
@@ -81,17 +85,22 @@ def build_transforms(height, width, transforms="random_flip", norm_mean=None,
     missing = [t for t in transforms if t not in _PORTED]
     normalize = _normalizer(norm_mean, norm_std)
 
-    def train_fn(batch: torch.Tensor, generator: torch.Generator):
-        if missing or k_tfm > 1:
-            raise NotImplementedError(
-                f"train transforms {missing} (ROADMAP A.8) and data.k_tfm "
-                f"{k_tfm} > 1 (ROADMAP A.11) are not ported yet; "
-                f"ported: {list(_PORTED)}")
-        x = batch.float() / 255.0
+    def train_one(x: torch.Tensor, generator: torch.Generator):
         if "random_flip" in transforms:
             flip = torch.rand(x.shape[0], generator=generator,
                               device=x.device) < 0.5
             x = random_flip(x, flip)
-        return normalize(x).permute(0, 3, 1, 2)
+        return x
+
+    def train_fn(batch: torch.Tensor, generator: torch.Generator):
+        if missing:
+            raise NotImplementedError(
+                f"train transforms {missing} are not ported yet (ROADMAP "
+                f"A.4); ported: {list(_PORTED)}")
+        x = batch.float() / 255.0
+        if k_tfm == 1:
+            return normalize(train_one(x, generator)).permute(0, 3, 1, 2)
+        xs = torch.stack([train_one(x, generator) for _ in range(k_tfm)])
+        return normalize(xs).permute(0, 1, 4, 2, 3)
 
     return train_fn, build_test_transform(norm_mean, norm_std)

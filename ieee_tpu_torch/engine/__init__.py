@@ -1,16 +1,18 @@
 """Engine dispatch (counterpart of ``ieee_tpu/engine/__init__.py``).
 
-This slice builds ``Image3MEngine`` for ``loss.name margin`` (the IEEE run
-config), for training and evaluation; the other engines come later
-(ROADMAP A.11, A.12).
+``loss.name margin`` builds ``Image3MEngine`` (the IEEE run config) and
+``loss.name softmax`` the multi-modal CE engine (the ablation configs);
+the triplet, hcloss/CMT and video engines come later (ROADMAP A.8).
 """
 
 from __future__ import annotations
 
 from .engine import Engine
 from .image.margin import Image3MEngine
+from .image.softmax import ImageSoftmaxEngine, MultiModalImageSoftmaxEngine
 
-__all__ = ["Engine", "Image3MEngine", "build_engine"]
+__all__ = ["Engine", "Image3MEngine", "ImageSoftmaxEngine",
+           "MultiModalImageSoftmaxEngine", "build_engine"]
 
 
 def build_engine(cfg, datamanager, model, optimizer=None, scheduler=None,
@@ -18,14 +20,29 @@ def build_engine(cfg, datamanager, model, optimizer=None, scheduler=None,
     """Engine for ``cfg.loss.name`` (reference
     ``scripts/mainMultiModal.py:45-130``)."""
     name = cfg.loss.name
-    if name != "margin":
+    common = dict(device=device, fused_eval=bool(cfg.cuda.fused_eval),
+                  seed=cfg.train.seed,
+                  accum_steps=int(cfg.train.accum_steps),
+                  label_smooth=cfg.loss.softmax.label_smooth)
+    if getattr(datamanager, "data_type", "image") == "video":
         raise NotImplementedError(
-            f"the {name!r} engine is not ported yet (only margin)")
-    return Image3MEngine(
-        datamanager, model, optimizer, scheduler, device=device,
-        fused_eval=bool(cfg.cuda.fused_eval), seed=cfg.train.seed,
-        accum_steps=int(cfg.train.accum_steps), margin=cfg.loss.ieee_margin,
-        weight_m=cfg.loss.weight_m, weight_x=cfg.loss.weight_x,
-        weight_m_warmup=int(cfg.loss.weight_m_warmup),
-        margin_mean_over_ids=bool(cfg.loss.margin_mean_over_ids),
-        label_smooth=cfg.loss.softmax.label_smooth)
+            "the video engines are not ported yet (ROADMAP A.4, A.8)")
+    if name == "softmax":
+        if datamanager.num_streams > 1:
+            return MultiModalImageSoftmaxEngine(
+                datamanager, model, optimizer, scheduler, **common)
+        raise NotImplementedError(
+            "the single-modal softmax engine needs a single-modal model, "
+            "not ported yet (ROADMAP A.5)")
+    if name == "margin":
+        return Image3MEngine(
+            datamanager, model, optimizer, scheduler,
+            margin=cfg.loss.ieee_margin, weight_m=cfg.loss.weight_m,
+            weight_x=cfg.loss.weight_x,
+            weight_m_warmup=int(cfg.loss.weight_m_warmup),
+            margin_mean_over_ids=bool(cfg.loss.margin_mean_over_ids),
+            **common)
+    if name in ("triplet", "hcloss", "CMT"):
+        raise NotImplementedError(
+            f"the {name!r} engine is not ported yet (ROADMAP A.8)")
+    raise ValueError(f"Unsupported loss: {name}")

@@ -6,20 +6,29 @@ arrays, go to the device, and are transformed there.
 
 - Training (``train_step``): transform -> forward -> loss -> backward ->
   optimizer, the JAX package's ``_build_train_step`` order; BatchNorm
-  running statistics update in the forward. Every parameter gets a gradient
-  before the optimizer step (zeros where the forward does not reach it, as
-  REM's conv_query and conv_value), so weight decay and momentum touch the
-  same set as optax does on the JAX side.
+  running statistics update in the forward. Every trainable parameter gets
+  a gradient before the optimizer step (zeros where the forward does not
+  reach it, as REM's conv_query and conv_value), so weight decay and
+  momentum touch the same set as optax does on the JAX side. ``data.k_tfm``
+  > 1 folds each image's K augmentation draws into the batch, adjacent,
+  with the pids repeated alike (``_fold_k_tfm``); ``train.accum_steps`` > 1
+  runs the batch as that many micro-batches in order, the BN running
+  statistics chained through them, and averages gradients and metrics
+  before the one optimizer step (``_accum_grads``).
 - ``train`` sets the epoch's learning rate from the scheduler and averages
-  the step metrics; ``run`` trains, evaluates at ``eval_freq`` and at the
-  last epoch (which the reference skips, ``engine.py:216``), and saves a
-  reference-format checkpoint at each evaluation.
+  the step metrics. Under fixbase (``epoch < fixbase_epoch`` with
+  ``open_layers``) only the open top-level modules train: the others'
+  parameters take no gradient, so SGD skips them and their moments stay as
+  they were (``_mask_opt_state``), and their BatchNorms keep their running
+  statistics (``stats_mask``) and, with ``fixbase_bn_eval``, normalise by
+  them where the JAX package's interceptor reaches (``_freeze``).
+- ``run`` resumes from a checkpoint, trains, evaluates at ``eval_freq`` and
+  at the last epoch (which the reference skips, ``engine.py:216``), and
+  saves a reference-format checkpoint with the optimizer's state at each
+  evaluation, or every ``save_freq`` epochs (``utils/checkpoint.py``).
 - Evaluation: features, the distmat and the ranking stay on the device
   until the metrics are read. ``test`` returns the rank-1 of the LAST
   target dataset, the reference's quirk (``engine.py:319-337``).
-
-Not ported yet, and refused when asked for: fixbase (open_layers warm-up),
-resume (ROADMAP A.11), gradient accumulation (A.16).
 """
 
 from __future__ import annotations
@@ -27,16 +36,17 @@ from __future__ import annotations
 import datetime
 import json
 import os.path as osp
-import shutil
 import time
 
 import numpy as np
 import torch
 
+from ..models.common import FastBatchNorm
 from ..models.fast_eval import build_fast_ieee_eval_step, supports_fast_eval
 from ..ops import compute_distance_matrix, evaluate_rank
 from ..optim import set_lr
 from ..utils.avgmeter import AverageMeter, MetricMeter
+from ..utils.checkpoint import resume_from_checkpoint, save_checkpoint
 from ..utils.tools import mkdir_if_missing
 
 __all__ = ["Engine"]
@@ -51,6 +61,24 @@ def _traced_accuracy(logits, pids):
     return 100.0 * (preds == pids).float().mean()
 
 
+def named_units(model):
+    """(name, module) of the model's top-level modules, as
+    ``train.open_layers`` names them: the JAX package's module names where
+    the model gives them (``IEEE3modalPart.named_units``), else its
+    children's."""
+    if hasattr(model, "named_units"):
+        return list(model.named_units())
+    return list(model.named_children())
+
+
+def is_open(name: str, open_layers) -> bool:
+    """The JAX package's rule (``Engine._open_layers_mask``): a top-level
+    module is open when any name in ``open_layers`` is a substring of its
+    name."""
+    opens = [open_layers] if isinstance(open_layers, str) else open_layers
+    return any(o in name for o in opens)
+
+
 class Engine:
     """Train and eval engine for one model on one device. Subclasses
     implement ``compute_loss(out, pids, hp)`` -> (scalar loss, metrics
@@ -60,15 +88,17 @@ class Engine:
     through the folded head with the partpool kernel
     (``models/fast_eval.py``); other models take the plain forward. Off
     by default, as in the JAX package's engine.
-    ``seed`` seeds the device generator of the train transforms.
+    ``seed`` seeds the device generator of the train transforms;
+    ``accum_steps`` is ``train.accum_steps``.
     """
 
     def __init__(self, datamanager, model, optimizer=None, scheduler=None,
                  device="cuda", fused_eval: bool = False, seed: int = 1,
                  accum_steps: int = 1):
-        if int(accum_steps) != 1:
-            raise NotImplementedError(
-                "train.accum_steps > 1 is not ported yet: ROADMAP A.16")
+        if int(accum_steps) < 1:
+            raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+        self.accum_steps = int(accum_steps)
+        self.k_tfm = int(getattr(datamanager, "k_tfm", 1))
         self.datamanager = datamanager
         self.model = model
         self.optimizer = optimizer
@@ -111,6 +141,44 @@ class Engine:
             return tuple(tfm(m, self.generator) for m in imgs)
         return tfm(imgs, self.generator)
 
+    @staticmethod
+    def _fold_k_tfm(x):
+        """(K, B, 3, H, W) k_tfm draws -> (B*K, 3, H, W) with each image's
+        K draws adjacent, channels_last (the JAX ``_fold_k_tfm``, which
+        keeps the sampler's contiguous-per-pid layout)."""
+        k, b, c, h, w = x.shape
+        return x.permute(1, 0, 3, 4, 2).reshape(b * k, h, w, c).permute(
+            0, 3, 1, 2)
+
+    def _accum_grads(self, imgs, pids, hp):
+        """Gradient accumulation (the JAX ``_accum_grads``): the batch in
+        ``accum_steps`` micro-batches, in order, each forward updating the
+        BN running statistics after the one before; the gradients summed,
+        then divided by the count; the loss and metrics averaged."""
+        accum = self.accum_steps
+        multi = isinstance(imgs, tuple)
+        b = (imgs[0] if multi else imgs).shape[0]
+        if b % accum:
+            raise ValueError(
+                f"train batch {b} (incl. k_tfm draws) is not divisible by "
+                f"accum_steps={accum}")
+        n = b // accum
+        losses, metrics = [], []
+        for i in range(accum):
+            sl = slice(i * n, (i + 1) * n)
+            out = self.model(tuple(m[sl] for m in imgs) if multi
+                             else imgs[sl])
+            loss, mets = self.compute_loss(out, pids[sl], hp)
+            loss.backward()
+            losses.append(loss.detach())
+            metrics.append({k: v.detach() for k, v in mets.items()})
+        for p in self.model.parameters():
+            if p.grad is not None:
+                p.grad.div_(accum)
+        return (torch.stack(losses).mean(),
+                {k: torch.stack([m[k] for m in metrics]).mean()
+                 for k in metrics[0]})
+
     def train_step(self, imgs, pids, hp=None) -> dict:
         """One optimizer step on a batch already on the device (uint8
         images, int64 pids). Returns the metrics as 0-d tensors on the
@@ -118,16 +186,25 @@ class Engine:
         if self.optimizer is None:
             raise ValueError("training needs an optimizer")
         self.model.train()
-        out = self.model(self._transform_train(imgs))
-        loss, metrics = self.compute_loss(out, pids, hp)
+        imgs = self._transform_train(imgs)
+        if self.k_tfm > 1:
+            # the K draws into the batch axis; pids repeat K-adjacent so the
+            # (P, K * k_tfm) loss contract holds
+            imgs = (tuple(self._fold_k_tfm(m) for m in imgs)
+                    if isinstance(imgs, tuple) else self._fold_k_tfm(imgs))
+            pids = pids.repeat_interleave(self.k_tfm)
         self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        if self.accum_steps > 1:
+            loss, metrics = self._accum_grads(imgs, pids, hp)
+        else:
+            loss, metrics = self.compute_loss(self.model(imgs), pids, hp)
+            loss.backward()
+            metrics = {k: v.detach() for k, v in metrics.items()}
         for group in self.optimizer.param_groups:
             for p in group["params"]:
-                if p.grad is None:
+                if p.grad is None and p.requires_grad:
                     p.grad = torch.zeros_like(p)
         self.optimizer.step()
-        metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
         return metrics
 
@@ -137,12 +214,54 @@ class Engine:
                 if isinstance(imgs, (tuple, list)) else self._put(imgs))
         return imgs, self._put(np.asarray(data["pid"], np.int64))
 
-    def train(self, print_freq=10, fixbase_epoch=0, open_layers=None):
-        """One epoch over the train loader at the scheduler's rate."""
+    def _freeze(self, open_layers, bn_eval: bool, bn_freeze: bool):
+        """Fixbase for one epoch: every top-level module that is not open
+        (``is_open``) takes no gradient, and its BatchNorms keep their
+        running statistics (with ``bn_eval`` or ``bn_freeze``, the JAX
+        ``stats_mask``) and, with ``bn_eval``, normalise by them in their
+        own forward (the JAX ``_bn_eval_interceptor``). Returns what
+        ``_unfreeze`` restores."""
+        params, bns = [], []
+        for name, unit in named_units(self.model):
+            if is_open(name, open_layers):
+                continue
+            for p in unit.parameters():
+                if p.requires_grad:
+                    p.requires_grad_(False)
+                    params.append(p)
+            for bn in unit.modules():
+                if isinstance(bn, FastBatchNorm):
+                    bn.use_running = bool(bn_eval)
+                    bn.pin_stats = bool(bn_eval or bn_freeze)
+                    bns.append(bn)
+        return params, bns
+
+    @staticmethod
+    def _unfreeze(frozen) -> None:
+        params, bns = frozen
+        for p in params:
+            p.requires_grad_(True)
+        for bn in bns:
+            bn.use_running = bn.pin_stats = False
+
+    def train(self, print_freq=10, fixbase_epoch=0, open_layers=None,
+              fixbase_bn_freeze=False, fixbase_bn_eval=True):
+        """One epoch over the train loader at the scheduler's rate; under
+        fixbase (``epoch < fixbase_epoch`` and ``open_layers``) only the
+        open modules train (``_freeze``)."""
+        frozen = None
         if self.epoch < fixbase_epoch and open_layers:
-            raise NotImplementedError(
-                "train.fixbase_epoch > 0 (open_layers warm-up) is not ported "
-                "yet: ROADMAP A.11")
+            print(f"* Only train {open_layers} (epoch: {self.epoch + 1}/"
+                  f"{fixbase_epoch})")
+            frozen = self._freeze(open_layers, fixbase_bn_eval,
+                                  fixbase_bn_freeze)
+        try:
+            self._train_epoch(print_freq)
+        finally:
+            if frozen is not None:
+                self._unfreeze(frozen)
+
+    def _train_epoch(self, print_freq):
         losses = MetricMeter()
         batch_time = AverageMeter()
         data_time = AverageMeter()
@@ -180,19 +299,13 @@ class Engine:
 
     def save_model(self, epoch, rank1, save_dir, is_best=False):
         """``<save_dir>/model/model.pth.tar-<epoch+1>`` in the reference's
-        format, ``{'state_dict', 'epoch', 'rank1'}`` (what
-        ``models/weights.py:load_reference_checkpoint`` reads), and a copy
-        as ``model-best.pth.tar`` when ``is_best``."""
-        out_dir = osp.join(save_dir, "model")
-        mkdir_if_missing(out_dir)
-        path = osp.join(out_dir, f"model.pth.tar-{epoch + 1}")
-        state = {k: v.detach().cpu()
-                 for k, v in self.model.state_dict().items()}
-        torch.save({"state_dict": state, "epoch": epoch + 1,
-                    "rank1": float(rank1)}, path)
-        if is_best:
-            shutil.copy(path, osp.join(out_dir, "model-best.pth.tar"))
-        print(f'Checkpoint saved to "{path}"')
+        format, ``{'state_dict', 'epoch', 'rank1', 'optimizer'}`` (what
+        ``models/weights.py:load_reference_checkpoint`` reads, and what
+        resume restores), and a copy as ``model-best.pth.tar`` when
+        ``is_best`` (``utils/checkpoint.py:save_checkpoint``)."""
+        save_checkpoint(self.model, osp.join(save_dir, "model"), epoch + 1,
+                        rank1=rank1, is_best=is_best,
+                        optimizer=self.optimizer)
 
     # ------------------------------------------------------------------
     # evaluation
@@ -325,19 +438,23 @@ class Engine:
             normalize_feature: bool = False, visrank: bool = False,
             visrank_topk: int = 10, use_metric_cuhk03: bool = False,
             ranks=(1, 5, 10, 20), rerank: bool = False,
-            resume: str = "") -> float:
+            resume: str = "", save_freq: int = -1,
+            save_best: bool = True) -> float:
         """Train ``start_epoch``..``max_epoch`` and evaluate, or with
         ``test_only`` evaluate only; returns the last rank-1. The JAX
-        package's ``Engine.run`` with its default save policy: evaluation
-        at every ``eval_freq``-th epoch from ``start_eval`` and at the last,
-        a checkpoint at each evaluation."""
-        del fixbase_bn_freeze, fixbase_bn_eval  # only read under fixbase
+        package's ``Engine.run``: ``resume`` (a checkpoint, or a directory
+        for its newest) restores the model and the optimizer and starts at
+        the checkpoint's epoch; evaluation at every ``eval_freq``-th epoch
+        from ``start_eval`` and at the last. With ``save_freq`` <= 0 a
+        checkpoint at each evaluation; else every ``save_freq`` epochs, at
+        the last and, unless ``save_best`` is False, at each best
+        evaluation."""
         if save_dir:
             mkdir_if_missing(save_dir)
             self._metrics_path = osp.join(save_dir, "metrics.jsonl")
         if resume:
-            raise NotImplementedError(
-                "resume is not ported yet: ROADMAP A.11")
+            start_epoch = resume_from_checkpoint(resume, self.model,
+                                                 self.optimizer)
         test_kw = dict(dist_metric=dist_metric,
                        normalize_feature=normalize_feature, visrank=visrank,
                        visrank_topk=visrank_topk, save_dir=save_dir,
@@ -352,14 +469,23 @@ class Engine:
         rank1, best_rank1 = 0.0, -1.0
         for self.epoch in range(start_epoch, max_epoch):
             self.train(print_freq=print_freq, fixbase_epoch=fixbase_epoch,
-                       open_layers=open_layers)
+                       open_layers=open_layers,
+                       fixbase_bn_freeze=fixbase_bn_freeze,
+                       fixbase_bn_eval=fixbase_bn_eval)
             is_last = (self.epoch + 1) == max_epoch
             should_eval = (eval_freq > 0 and (self.epoch + 1) >= start_eval
                            and (self.epoch + 1) % eval_freq == 0)
+            is_best = False
             if should_eval or is_last:
                 rank1 = self.test(**test_kw)
                 is_best = rank1 > best_rank1
                 best_rank1 = max(best_rank1, rank1)
+            if save_freq <= 0:
+                should_save = should_eval or is_last
+            else:
+                should_save = ((self.epoch + 1) % save_freq == 0 or is_last
+                               or (is_best and save_best))
+            if should_save:
                 self.save_model(self.epoch, rank1, save_dir, is_best=is_best)
         elapsed = round(time.time() - time_start)
         print(f"Elapsed {datetime.timedelta(seconds=elapsed)}")

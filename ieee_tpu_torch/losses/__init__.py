@@ -3,7 +3,7 @@
 
 This slice ports what the IEEE training path uses: label-smoothed cross
 entropy and the 3M multi-modal margin loss. The triplet, hetero and time
-losses come later (ROADMAP A.12).
+losses come later (ROADMAP A.8).
 """
 
 from .cross_entropy import cross_entropy_loss

@@ -4,7 +4,8 @@ Counterpart of ``scripts/main_multimodal.py`` (reference
 ``scripts/mainMultiModal.py:150-241``): parse args -> merge config -> seed ->
 Logger tee -> datamanager -> model -> weights -> optimizer and scheduler ->
 engine -> ``engine.run``, which trains (evaluating at ``test.eval_freq``
-and at the last epoch) or, with ``test.evaluate True``, evaluates only.
+and at the last epoch; from the checkpoint ``model.resume`` names, when it
+names one) or, with ``test.evaluate True``, evaluates only.
 
 Usage:
     python -m ieee_tpu_torch.main_multimodal \
@@ -114,9 +115,10 @@ def main(argv=None) -> float:
         print(f"Building {cfg.loss.name}-engine for {cfg.data.type}-reid")
         engine = build_engine(cfg, datamanager, model, optimizer, scheduler,
                               device=device)
+        run_kwargs = engine_run_kwargs(cfg)
         if cfg.model.resume:
-            raise NotImplementedError("model.resume is not ported yet")
-        return engine.run(**engine_run_kwargs(cfg))
+            run_kwargs["resume"] = cfg.model.resume
+        return engine.run(**run_kwargs)
     finally:
         log, sys.stdout = sys.stdout, stdout
         log.close()

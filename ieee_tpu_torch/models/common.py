@@ -42,6 +42,15 @@ class FastBatchNorm(nn.Module):
     running_var, num_batches_tracked). Channels are dim 1 of the input.
     ``clip_var`` clips a negative batch variance (f32 cancellation) to 0, as
     flax's own ``nn.BatchNorm`` does; the JAX ``FastBatchNorm`` does not.
+
+    Two flags, set by the engine on the BNs of frozen modules during a
+    fixbase warm-up (``engine/engine.py``), follow the JAX package's
+    ``_bn_eval_interceptor`` and ``stats_mask``: ``use_running`` makes a
+    training forward of THIS module normalise with the running statistics
+    (the interceptor reaches flax BN modules only, so the fused 1x1 and
+    block sites, which take the BN's parameters without calling it, still
+    normalise with batch statistics); ``pin_stats`` keeps the running
+    statistics as they are at every site.
     """
 
     def __init__(self, num_features: int, momentum: float = 0.9,
@@ -59,6 +68,8 @@ class FastBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked",
                              torch.zeros((), dtype=torch.long))
+        self.use_running = False
+        self.pin_stats = False
 
     def folded(self, mean=None, var=None):
         """(inv, shift) in f32 such that bn(x) = x * inv + shift."""
@@ -69,7 +80,10 @@ class FastBatchNorm(nn.Module):
 
     @torch.no_grad()
     def update_running(self, mean, var) -> None:
-        """Fold batch statistics into the running ones (flax's momentum)."""
+        """Fold batch statistics into the running ones (flax's momentum);
+        nothing while ``pin_stats``."""
+        if self.pin_stats:
+            return
         m = self.momentum
         self.running_mean.mul_(m).add_((1 - m) * mean)
         self.running_var.mul_(m).add_((1 - m) * var)
@@ -77,7 +91,7 @@ class FastBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.ndim - 2)
-        if self.training:
+        if self.training and not self.use_running:
             dims = [d for d in range(x.ndim) if d != 1]
             xf = x.float()
             mean = xf.mean(dims)

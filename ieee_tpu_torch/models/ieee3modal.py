@@ -156,6 +156,22 @@ class IEEE3modalPart(nn.Module):
             self.add_module(f"classifier_{m}", nn.ModuleList(
                 nn.Linear(fc_dim, num_classes) for _ in range(parts)))
 
+    def named_units(self):
+        """(name, module) of each top-level module under the JAX package's
+        name for it (``backbone_R``, ``convOne_0``, ``CA_0``, ``reduce_0``,
+        ``REM_0``, ``fc_R``, ``classifier_R``, ...): the names that
+        ``train.open_layers`` matches during a fixbase warm-up."""
+        for m, trunk in zip(_MODAL, self.backbone):
+            yield f"backbone_{m}", trunk
+        groups = [("convOne", "convOne"), ("convAvgRest", "convAvgRest"),
+                  ("CA", "CA"), ("reduce", "reduce_layer"), ("REM", "REM")]
+        for name, attr in groups:
+            for i, mod in enumerate(getattr(self, attr, ())):
+                yield f"{name}_{i}", mod
+        for m in _MODAL:
+            yield f"fc_{m}", getattr(self, f"fc_{m}")
+            yield f"classifier_{m}", getattr(self, f"classifier_{m}")
+
     def _cim(self, one, rest1, rest2, idx):
         """Cross-modal interaction (reference ``ieee3modalPart.py:427-435``)."""
         f_one = self.convOne[idx](one)

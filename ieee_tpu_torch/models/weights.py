@@ -104,19 +104,25 @@ def _jax_to_state_dict(params: Dict, stats: Dict, parts: int) -> Dict:
                 convbn(f"{q}.downsample.0", f"{q}.downsample.1",
                        bp["downsample"], bs["downsample"])
 
+    # the ablation variants (interaction, attention or using_REM off) have
+    # no CIM, CA or REM modules in either tree
     for i in range(3):
         for src, dst in ((f"convOne_{i}", f"convOne.{i}.layers"),
                          (f"convAvgRest_{i}", f"convAvgRest.{i}.layers"),
                          (f"reduce_{i}", f"reduce_layer.{i}.layers")):
-            convbn(f"{dst}.0", f"{dst}.1", params[src], stats[src])
-        ca = params[f"CA_{i}"]
-        sd[f"CA.{i}.fc.0.weight"] = np.asarray(ca["fc1"]["kernel"]).T[:, :, None, None]
-        sd[f"CA.{i}.fc.2.weight"] = np.asarray(ca["fc2"]["kernel"]).T[:, :, None, None]
-        rem = params[f"REM_{i}"]
-        for nm in ("conv_query", "conv_part", "conv_value"):
-            sd[f"REM.{i}.{nm}.weight"] = np.asarray(rem[nm]["kernel"]).T
-            sd[f"REM.{i}.{nm}.bias"] = rem[nm]["bias"]
-        sd[f"REM.{i}.param"] = np.asarray(rem["gamma"]).reshape(1)
+            if src in params:
+                convbn(f"{dst}.0", f"{dst}.1", params[src], stats[src])
+        if f"CA_{i}" in params:
+            ca = params[f"CA_{i}"]
+            for j, fc in ((0, "fc1"), (2, "fc2")):
+                sd[f"CA.{i}.fc.{j}.weight"] = np.asarray(
+                    ca[fc]["kernel"]).T[:, :, None, None]
+        if f"REM_{i}" in params:
+            rem = params[f"REM_{i}"]
+            for nm in ("conv_query", "conv_part", "conv_value"):
+                sd[f"REM.{i}.{nm}.weight"] = np.asarray(rem[nm]["kernel"]).T
+                sd[f"REM.{i}.{nm}.bias"] = rem[nm]["bias"]
+            sd[f"REM.{i}.param"] = np.asarray(rem["gamma"]).reshape(1)
 
     for m in _MODAL:
         fp, fs = params[f"fc_{m}"], stats[f"fc_{m}"]

@@ -17,7 +17,7 @@ JAX package's optax semantics:
   ``build_lr_scheduler``'s ``lr(epoch)``; with ``staged_lr`` each param
   group carries its ``lr_mult``.
 
-radam comes later (ROADMAP A.12).
+radam comes later (ROADMAP A.8).
 """
 
 from __future__ import annotations
@@ -156,7 +156,7 @@ def build_optimizer(model: nn.Module, optim: str = "adam",
                        momentum=momentum or 0.0, weight_decay=wd)
     raise NotImplementedError(
         "optim radam (ieee_tpu/optim/radam.py) is not ported yet: "
-        "ROADMAP A.12")
+        "ROADMAP A.8")
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:

@@ -1,8 +1,9 @@
-"""The port's measurement tools, counterparts of the JAX package's
-``tools/``: each runs as ``python -m ieee_tpu_torch.tools.<name>`` with the
-JAX tool's arguments and defaults plus ``--device`` (default ``cuda``; it
-raises without a card unless given ``--device cpu``, which runs the plain
-PyTorch versions and times on the host clock).
+"""The port's measurement and training tools, counterparts of the JAX
+package's ``tools/``: each runs as ``python -m
+ieee_tpu_torch.tools.<name>`` with the JAX tool's arguments and defaults
+plus ``--device`` (default ``cuda``; it raises without a card unless given
+``--device cpu``, which runs the plain PyTorch versions and times on the
+host clock).
 
 - ``bw_probe``, ``bw_probe2``, ``roofline_probe``: the bandwidth and matmul
   rates the card reaches (with the ``scale_bf16`` kernel).
@@ -13,6 +14,10 @@ PyTorch versions and times on the host clock).
 - ``eval_bench``, ``eval_fwd_bench``: the distmat with CMC/mAP at
   Market-1501 scale, and the plain vs fused eval forward.
 - ``loader_bench``: the train loader's batches/s against a step rate.
+- ``train_e2e``, ``summarize_e2e``, ``ablation_sweep``, ``diag_train``:
+  the paper's Table-3 drivers (a convergence run of one ablation variant
+  and the table of such runs; a few timed steps of each variant; gradient,
+  parameter and logit norms on real steps). They write under ``log/``.
 
 Three have no JAX counterpart; they time the port's kernels at the main
 paths' shapes: ``block_bench`` (the block backward's product kernels),

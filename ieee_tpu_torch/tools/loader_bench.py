@@ -8,7 +8,7 @@ batch's images copied to ``--device`` as the train loop does, host clock
 over ``--batches`` - 1 batches after the first. Without ``--root`` it
 reads ``synthetic_mm`` (array generation stands in for jpeg decode). The
 JAX tool's decode-cache rows (``data.decode_cache``) are not ported yet
-(ROADMAP A.17); the tool prints a line for each instead of a rate. With
+(ROADMAP A.4); the tool prints a line for each instead of a rate. With
 ``--step-rate`` it exits 1 when the best rate is below it.
 
 Usage: python -m ieee_tpu_torch.tools.loader_bench [--root DIR
@@ -43,7 +43,7 @@ def run(root: str = "", sources: str = "synthetic_mm", batch: int = 128,
     for workers, cache in configs:
         tag = f"workers={workers}" + (" +cache" if cache else "")
         if cache:
-            print(f"{tag}: not ported yet (data.decode_cache, ROADMAP A.17)")
+            print(f"{tag}: not ported yet (data.decode_cache, ROADMAP A.4)")
             continue
         dm = ImageDataManager(
             root=root, sources=sources, height=height, width=width,

@@ -164,8 +164,8 @@ def test_cli_refuses_what_this_slice_does_not_run(tmp_path):
             "data.targets", "['synthetic_mm']",
             "data.height", "32", "data.width", "16",
             "data.save_dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="A.11"):  # fixbase
-        main_multimodal.main(base + ["train.fixbase_epoch", "1",
+    with pytest.raises(NotImplementedError, match="A.8"):  # triplet
+        main_multimodal.main(base + ["loss.name", "triplet",
                                      "train.max_epoch", "1"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -140,7 +140,7 @@ def test_staged_lr_and_schedulers_match_jax():
         theirs = jax_build_lr_scheduler(base_lr=1e-3, **kw)
         for epoch in (0, 6, 19, 20, 39, 40, 60):
             assert ours(epoch) == pytest.approx(theirs(epoch), rel=1e-12)
-    with pytest.raises(NotImplementedError, match="A.12"):
+    with pytest.raises(NotImplementedError, match="A.8"):
         build_optimizer(model, optim="radam")
 
 
@@ -191,7 +191,7 @@ def test_train_transform_flips_from_the_generator_and_refuses_the_rest():
     assert torch.equal(out, again)
     train_fn, _ = build_transforms(4, 6, transforms=["random_flip",
                                                      "random_erase"])
-    with pytest.raises(NotImplementedError, match="A.8"):
+    with pytest.raises(NotImplementedError, match="A.4"):
         train_fn(batch, torch.Generator())
     with pytest.raises(ValueError):
         build_transforms(4, 6, transforms=["no_such"])

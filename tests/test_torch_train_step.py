@@ -160,7 +160,7 @@ def test_cli_trains_on_cpu(tmp_path, capsys, monkeypatch):
     assert "Rank-1" in out
     ckpt = torch.load(tmp_path / "model" / "model.pth.tar-1",
                       weights_only=False)
-    assert set(ckpt) == {"state_dict", "epoch", "rank1"}
+    assert set(ckpt) == {"state_dict", "epoch", "rank1", "optimizer"}
     assert ckpt["epoch"] == 1 and abs(ckpt["rank1"] - rank1) < 1e-9
     assert os.path.isfile(tmp_path / "model" / "model-best.pth.tar")
     lines = (tmp_path / "metrics.jsonl").read_text().splitlines()
