@@ -114,6 +114,25 @@ Phases (any failure raises and exits non-zero):
    train.accum_steps 2`` (two micro-batches of 8 a step). Last,
    ``ablation_sweep --fused`` at batch 128 with 5 timed steps a variant:
    each variant's triplets/s, and the launches its sites imply.
+10. Single-modal and Market configs, counts set to 0 just before the
+   phase: ``configs/market1501_softmax_r50.yaml`` through
+   ``python -m ieee_tpu_torch.main``'s ``main()`` at full width and depth
+   (resnet50, 256x128, batch 32, adam) on ``synthetic`` (Market-1501 is not
+   on the machine), one epoch of 4 steps and its eval: the single-modal
+   engine, ``distmat`` launched at K = 2048, no fused 1x1, partpool or
+   block kernel; its train step timed at phase 7's protocol (one fixed
+   batch of 32 on the card, 3 warm-up and 20 timed steps, host clock
+   ending in a sync): images/s, peak memory and a ``torch.profiler``
+   summary (device ms a step, busy share, top kernels). Then
+   ``configs/market_mm_margin.yaml`` through the CLI with
+   ``cuda.fused_1x1 True cuda.fused_eval True`` on a
+   ``market1501_to_RGBNT201`` tree of jpegs written from a seed (8 ids x 4
+   images a split: 4 steps of batch 8), then its eval: the six kernels as
+   in phase 6 (33 launches of each train kernel a step, no block
+   kernel). Last, the distmat as in phase 5 at Market-1501's 3368 x 15913
+   with resnet50's K = 2048 and at 836 x 836 with resnet18's K = 512; the
+   rankings by the kernel's and the plain distmat may differ in at most
+   two queries (mAP and each CMC rank within 2 / m).
 
 Each phase prints its seconds, and the run its total. The line before the
 last is the JSON list of kernels; the last line is ``{"ok": true,
@@ -130,6 +149,9 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "rgbnt_ieee_part_margin.yaml")
+# phase 10: the single-modal baseline and the multi-modal Market config
+MARKET_R50 = os.path.join(ROOT, "configs", "market1501_softmax_r50.yaml")
+MARKET_MM = os.path.join(ROOT, "configs", "market_mm_margin.yaml")
 
 KERNELS = {
     "distmat": ("ieee_tpu_torch/csrc/distmat.cu",
@@ -1057,14 +1079,15 @@ def engine_eval():
                              f"{cos.min().item()}")
 
 
-def distmat_scale(results):
-    """Phase 5: the distmat at Market-1501 scale: the kernel against its
-    plain version (1e-5 of the largest entry); on q's first 500 rows both
-    against a float64 distmat (the kernel's error at most twice the plain
-    version's, plus 2^-23 of the largest |entry|); the times of the
-    kernel, the plain version and addmm beside the 3xTF32 and f32-core
-    bounds; and the mAP and CMC of the rankings by the two distmats, with
-    random ids as eval_bench makes them (printed only)."""
+def distmat_scale(results, m=3368, n=15913, k=2304, check_ranks=False):
+    """Phase 5 (and 10 at other widths): the distmat at Market-1501 scale:
+    the kernel against its plain version (1e-5 of the largest entry); on
+    q's first 500 rows both against a float64 distmat (the kernel's error
+    at most twice the plain version's, plus 2^-23 of the largest |entry|);
+    the times of the kernel, the plain version and addmm beside the 3xTF32
+    and f32-core bounds; and the mAP and CMC of the rankings by the two
+    distmats, with random ids as eval_bench makes them (printed; with
+    ``check_ranks`` they may differ in at most two of the m queries)."""
     import numpy as np
     import torch
 
@@ -1072,7 +1095,6 @@ def distmat_scale(results):
         euclidean_sq, euclidean_sq_plain)
     from ieee_tpu_torch.ops.ranking import _device_rank
 
-    m, n, k = 3368, 15913, 2304
     q, g = randn((m, k), 11).abs(), randn((n, k), 12).abs()
     got, want = euclidean_sq(q, g), euclidean_sq_plain(q, g)
     torch.cuda.synchronize()
@@ -1109,10 +1131,14 @@ def distmat_scale(results):
            for hi, size in ((750, m), (750, n), (6, m), (6, n))]
     ranks = [_device_rank(d, *ids, 50) for d in (got, want)]
     cmc_diff = (ranks[0][0] - ranks[1][0]).abs().max().item()
-    print(f"rankings by the kernel's and the plain distmat: mAP "
-          f"{float(ranks[0][1]):.6f} and {float(ranks[1][1]):.6f} (diff "
-          f"{abs(float(ranks[0][1]) - float(ranks[1][1])):.3e}), CMC max "
-          f"diff {cmc_diff:.3e}")
+    map_diff = abs(float(ranks[0][1]) - float(ranks[1][1]))
+    print(f"rankings by the kernel's and the plain distmat ({m} x {n} x "
+          f"{k}): mAP {float(ranks[0][1]):.6f} and {float(ranks[1][1]):.6f} "
+          f"(diff {map_diff:.3e}), CMC max diff {cmc_diff:.3e}")
+    if check_ranks and max(cmc_diff, map_diff) > 2.0 / m:
+        raise AssertionError(f"the kernel's ranking differs from the plain "
+                             f"one in more than two queries: CMC "
+                             f"{cmc_diff}, mAP {map_diff}")
     results["distmat"]["cases"].append(
         {"shape": [m, n, k], "ms": ms, "plain_ms": plain_ms,
          "library_ms": lib_ms, "bound_ms": tf32[0], "bound_by": tf32[1],
@@ -1486,6 +1512,141 @@ def ablation_train():
     shutil.rmtree(save_dir, ignore_errors=True)  # 5 GB of checkpoints
 
 
+def write_market_mm_tree(root, pids=8, imgs=4):
+    """A ``market1501_to_RGBNT201`` tree of 256x128 jpegs from a seed:
+    ``pids`` ids x ``imgs`` images in train, query and gallery (test ids
+    apart from train ids), each in RGB, NI and TI under one name."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    for split, first in (("train", 1), ("query", 101), ("gallery", 101)):
+        for p in range(first, first + pids):
+            for j in range(imgs):
+                cam = 1 + (j + (split == "gallery")) % 6
+                name = f"{p:04d}_c{cam}s1_{j:06d}_00.jpg"
+                for modal in ("RGB", "NI", "TI"):
+                    d = os.path.join(root, "market1501_to_RGBNT201", split,
+                                     modal)
+                    os.makedirs(d, exist_ok=True)
+                    Image.fromarray(rng.integers(
+                        0, 256, (256, 128, 3), np.uint8)).save(
+                            os.path.join(d, name))
+
+
+def single_modal_market(results):
+    """Phase 10: configs[0] through the single-modal CLI and its train step
+    timed, configs[4] through the CLI on a Market tree, the distmat at the
+    single-modal widths."""
+    import shutil
+
+    import torch
+
+    from ieee_tpu_torch import main as single_main
+    from ieee_tpu_torch import main_multimodal
+    from ieee_tpu_torch.data import ImageDataManager
+    from ieee_tpu_torch.engine import ImageSoftmaxEngine
+    from ieee_tpu_torch.models import build_model
+    from ieee_tpu_torch.ops import distance, kernels
+    from ieee_tpu_torch.optim import build_optimizer
+    from ieee_tpu_torch.tools.profile_train import profile_steps
+
+    save_dir = os.path.join(ROOT, "log", "chip_smoke_market")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    # the distmat calls' shapes, seen at the one name the eval goes through
+    shapes = []
+    real_sq = distance.euclidean_sq
+
+    def spy(q, g):
+        shapes.append((q.shape[0], g.shape[0], q.shape[1]))
+        return real_sq(q, g)
+
+    distance.euclidean_sq = spy
+    try:
+        kernels.reset_launch_counts()
+        rank1 = single_main.main([
+            "--config-file", MARKET_R50, "--device", "cuda",
+            "model.pretrained", "False",
+            "data.sources", "['synthetic']", "data.targets", "['synthetic']",
+            "data.save_dir", os.path.join(save_dir, "r50"),
+            "train.max_epoch", "1", "train.print_freq", "1"])
+        torch.cuda.synchronize()
+    finally:
+        distance.euclidean_sq = real_sq
+    counts = kernels.launch_counts()
+    print(f"single-modal CLI (market1501_softmax_r50.yaml on synthetic): "
+          f"rank1 {rank1:.4f}, distmat calls {shapes}, launches {counts}")
+    if not 0.0 <= rank1 <= 1.0:
+        raise AssertionError(f"rank-1 {rank1} outside [0, 1]")
+    if not shapes or any(s[2] != 2048 for s in shapes) or (
+            counts["distmat"] != len(shapes)):
+        raise AssertionError(f"distmat not launched at K = 2048: {shapes}, "
+                             f"{counts}")
+    if any(v for k, v in counts.items() if k != "distmat"):
+        raise AssertionError(f"the single-modal path launched other "
+                             f"kernels: {counts}")
+
+    # configs[0]'s train step at phase 7's protocol: batch 32, adam
+    dm = ImageDataManager(sources="synthetic", height=256, width=128,
+                          batch_size_train=32, workers=4, verbose=False,
+                          seed=0)
+    model = build_model("resnet50", dm.num_train_pids, "softmax",
+                        pretrained=False, seed=1)
+    opt = build_optimizer(model, optim="adam", lr=3e-4, weight_decay=5e-4)
+    eng = ImageSoftmaxEngine(dm, model, opt, device="cuda", seed=0)
+    imgs, pids = eng._put_batch(next(iter(dm.train_loader)))
+    for _ in range(3):
+        eng.train_step(imgs, pids)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        m = eng.train_step(imgs, pids)
+    loss = m["loss"].item()  # syncs on the last step
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"single-modal train step (resnet50, batch 32, 256x128, adam, "
+          f"bf16): {20 * 32 / dt:.1f} images/s ({dt / 20 * 1e3:.3f} "
+          f"ms/step); last loss {loss:.4f}; peak memory {peak:.2f} GiB; "
+          f"{card_line()}")
+    dev_ms, busy, rows = profile_steps(lambda: eng.train_step(imgs, pids))
+    print(f"  profiler: {dev_ms:.3f} device ms per step, busy {busy:.3f}")
+    for key, cnt, ms in rows[:8]:
+        print(f"  {ms:8.3f} ms/step {cnt:4d}x {key[:70]}")
+    if not math.isfinite(loss):
+        raise AssertionError(f"single-modal train loss not finite: {loss}")
+    del model, opt, eng, m
+    torch.cuda.empty_cache()
+
+    # configs[4] through the CLI on a market1501_to_RGBNT201 tree
+    write_market_mm_tree(os.path.join(save_dir, "data"))
+    kernels.reset_launch_counts()
+    rank1 = main_multimodal.main([
+        "--config-file", MARKET_MM, "--device", "cuda",
+        "--root", os.path.join(save_dir, "data"), "model.pretrained", "False",
+        "data.save_dir", os.path.join(save_dir, "mm"),
+        "train.max_epoch", "1", "train.print_freq", "1",
+        "cuda.fused_1x1", "True", "cuda.fused_eval", "True"])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    print(f"market_mm_margin.yaml CLI (market1501_to_RGBNT201 tree, 8 ids x "
+          f"4 images): rank1 {rank1:.4f}, launches {counts}")
+    missing = [k for k in EVAL_KERNELS + TRAIN_KERNELS if counts[k] <= 0]
+    if missing or not 0.0 <= rank1 <= 1.0:
+        raise AssertionError(f"market_mm: kernels not launched {missing}, "
+                             f"rank-1 {rank1}")
+    if (len({counts[k] for k in TRAIN_KERNELS}) != 1
+            or counts["mm_stats"] != 4 * 33
+            or any(counts[k] for k in BLOCK_KERNELS)):
+        raise AssertionError(f"market_mm: not 33 launches of each train "
+                             f"kernel in each of 4 steps: {counts}")
+    shutil.rmtree(save_dir, ignore_errors=True)
+
+    # the distmat at the single-modal widths
+    distmat_scale(results, 3368, 15913, 2048, check_ranks=True)
+    distmat_scale(results, 836, 836, 512, check_ranks=True)
+
+
 def run_tools():
     """Phase 8: each measurement tool's ``main()`` on the card; returns
     the launch counts of each run, by the tool's name and arguments."""
@@ -1608,6 +1769,10 @@ def main():
     t0 = time.perf_counter()
     ablation_train()
     print(f"phase ablation train: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    single_modal_market(results)
+    print(f"phase single-modal and Market configs: "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # each kernel's reported numbers: the weighted sum of its cases, where
     # the weight is how often the case runs in the reported unit: distmat

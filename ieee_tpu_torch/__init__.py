@@ -9,8 +9,10 @@ with its plain PyTorch version beside it (``ops/kernels/``).
 Ported so far: the IEEE retrieval path (config, datasets and loaders, the
 test transform, ``IEEE3modalPart`` with its folded fast-eval head, the
 distmat, CMC/mAP) and its training path (losses, optimizers, the P x K
-sampler, the flip, ``Image3MEngine``), with the CLI
-(``python -m ieee_tpu_torch.main_multimodal``) for both, and the
+sampler, the flip, ``Image3MEngine``, the softmax engines), with the CLI
+(``python -m ieee_tpu_torch.main_multimodal``) for both; the single-modal
+ResNet family (``ReIDResNet``) with ``python -m ieee_tpu_torch.main``; the
+Market-1501, market_to_RGBNT201, AllDay and UAV datasets; and the
 measurement tools (``python -m ieee_tpu_torch.tools.<name>``).
 """
 

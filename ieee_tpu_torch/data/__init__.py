@@ -1,6 +1,7 @@
 from .datamanager import ImageDataManager
 from .datasets import (
     Dataset,
+    ImageDataset,
     MultiModalImageDataset,
     init_image_dataset,
     register_image_dataset,
@@ -12,6 +13,7 @@ from .transforms import build_test_transform, build_transforms
 __all__ = [
     "ImageDataManager",
     "Dataset",
+    "ImageDataset",
     "MultiModalImageDataset",
     "init_image_dataset",
     "register_image_dataset",

@@ -1,7 +1,8 @@
 """Dataset base classes.
 
-Counterpart of ``ieee_tpu/data/datasets/base.py`` (numpy only; the port's
-slice holds the multi-modal image datasets). Reference analog:
+Counterpart of ``ieee_tpu/data/datasets/base.py`` (numpy only; the image
+datasets, single- and multi-modal; the video ones are not ported yet).
+Reference analog:
 ``torchreid/data/datasets/dataset.py``. Data items are
 tuples ``(img_path_or_paths, pid, camid, dsetid)`` (``dataset.py:54-62``);
 datasets combine with ``+``/``sum()`` with pid/camid/dsetid offsetting
@@ -115,7 +116,9 @@ class Dataset:
                 (paths, pid + num_train_pids, camid + num_train_cams,
                  dsetid + num_dsets)
             )
-        return MultiModalImageDataset(
+        cls = (ImageDataset if isinstance(self, ImageDataset)
+               else MultiModalImageDataset)
+        return cls(
             train,
             self.query,
             self.gallery,
@@ -187,6 +190,36 @@ class Dataset:
         return _resize_uint8(img, self.height, self.width)
 
 
+class ImageDataset(Dataset):
+    """Single-image items (reference ``dataset.py:354-415``).
+
+    __getitem__ -> dict(img=(H,W,3) uint8, pid, camid, impath, dsetid).
+    """
+
+    def __getitem__(self, index):
+        path, pid, camid, dsetid = self.data[index]
+        return {
+            "img": self._read_resized(path),
+            "pid": pid,
+            "camid": camid,
+            "impath": path,
+            "dsetid": dsetid,
+        }
+
+    def show_summary(self):
+        num_train_pids, num_train_cams = self.parse_data(self.train)
+        num_query_pids, num_query_cams = self.parse_data(self.query)
+        num_gallery_pids, num_gallery_cams = self.parse_data(self.gallery)
+        print(f"=> Loaded {self.__class__.__name__}")
+        print("  ----------------------------------------")
+        print("  subset   | # ids | # images | # cameras")
+        print("  ----------------------------------------")
+        print(f"  train    | {num_train_pids:5d} | {len(self.train):8d} | {num_train_cams:9d}")
+        print(f"  query    | {num_query_pids:5d} | {len(self.query):8d} | {num_query_cams:9d}")
+        print(f"  gallery  | {num_gallery_pids:5d} | {len(self.gallery):8d} | {num_gallery_cams:9d}")
+        print("  ----------------------------------------")
+
+
 class MultiModalImageDataset(Dataset):
     """Items whose first element is a LIST of per-modality image paths
     (reference ``dataset.py:322-351``; RGBNT201-style R/N/T triplets).
@@ -208,15 +241,4 @@ class MultiModalImageDataset(Dataset):
             "timeid": dsetid,
         }
 
-    def show_summary(self):
-        num_train_pids, num_train_cams = self.parse_data(self.train)
-        num_query_pids, num_query_cams = self.parse_data(self.query)
-        num_gallery_pids, num_gallery_cams = self.parse_data(self.gallery)
-        print(f"=> Loaded {self.__class__.__name__}")
-        print("  ----------------------------------------")
-        print("  subset   | # ids | # images | # cameras")
-        print("  ----------------------------------------")
-        print(f"  train    | {num_train_pids:5d} | {len(self.train):8d} | {num_train_cams:9d}")
-        print(f"  query    | {num_query_pids:5d} | {len(self.query):8d} | {num_query_cams:9d}")
-        print(f"  gallery  | {num_gallery_pids:5d} | {len(self.gallery):8d} | {num_gallery_cams:9d}")
-        print("  ----------------------------------------")
+    show_summary = ImageDataset.show_summary

@@ -1,8 +1,8 @@
-"""Synthetic in-memory multi-modal dataset (no reference analog).
+"""Synthetic in-memory datasets (no reference analog).
 
-Counterpart of ``ieee_tpu/data/datasets/image/synthetic.py`` (``SyntheticMM``
-and its renderers, numpy only): the same seed gives the same paths, pixels,
-pids and camids as the JAX package.
+Counterpart of ``ieee_tpu/data/datasets/image/synthetic.py`` (``Synthetic``,
+``SyntheticMM`` and their renderers, numpy only): the same seed gives the
+same paths, pixels, pids and camids as the JAX package.
 
 Purpose: CI/tests/bench run in environments without the (license-gated) re-ID
 datasets on disk. These generate deterministic random images in memory with
@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..base import MultiModalImageDataset
+from ..base import ImageDataset, MultiModalImageDataset
 
 
 def _make_split(rng, num_pids, imgs_per_pid, num_cams, num_modal,
@@ -151,6 +151,28 @@ def _render(path: str, height: int, width: int) -> np.ndarray:
 class _SyntheticMixin:
     def _read_resized(self, path: str) -> np.ndarray:
         return _render(path, self.height, self.width)
+
+
+class Synthetic(_SyntheticMixin, ImageDataset):
+    """Single-modal synthetic dataset. ``correlated=True`` makes
+    same-identity images share appearance (learnable retrieval).
+    ``heldout_test=True`` draws the query/gallery identities DISJOINT from
+    the train identities (open-set protocol, like the real re-ID datasets'
+    train/test splits); default False keeps the historical seen-id split."""
+
+    def __init__(self, root="", num_pids=16, imgs_per_pid=8, num_cams=4,
+                 seed=0, correlated=False, heldout_test=False, **kwargs):
+        rng = np.random.default_rng(seed)
+        scheme = "synthetic-corr" if correlated else "synthetic"
+        test_offset = num_pids if heldout_test else 0
+        train = _make_split(rng, num_pids, imgs_per_pid, num_cams, 1,
+                            scheme=scheme)
+        query = _make_split(rng, num_pids // 2, 2, num_cams, 1, scheme=scheme,
+                            pid_offset=test_offset)
+        gallery = _make_split(rng, num_pids // 2, 4, num_cams, 1,
+                              scheme=scheme, pid_offset=test_offset)
+        kwargs.setdefault("verbose", False)
+        super().__init__(train, query, gallery, **kwargs)
 
 
 class SyntheticMM(_SyntheticMixin, MultiModalImageDataset):

@@ -1,7 +1,8 @@
 """Engine dispatch (counterpart of ``ieee_tpu/engine/__init__.py``).
 
-``loss.name margin`` builds ``Image3MEngine`` (the IEEE run config) and
-``loss.name softmax`` the multi-modal CE engine (the ablation configs);
+``loss.name margin`` builds ``Image3MEngine`` (the IEEE run configs) and
+``loss.name softmax`` the multi-modal CE engine (the ablation configs) or,
+for single-modal data, the single-modal one (the Market-1501 baseline);
 the triplet, hcloss/CMT and video engines come later (ROADMAP A.8).
 """
 
@@ -28,12 +29,9 @@ def build_engine(cfg, datamanager, model, optimizer=None, scheduler=None,
         raise NotImplementedError(
             "the video engines are not ported yet (ROADMAP A.4, A.8)")
     if name == "softmax":
-        if datamanager.num_streams > 1:
-            return MultiModalImageSoftmaxEngine(
-                datamanager, model, optimizer, scheduler, **common)
-        raise NotImplementedError(
-            "the single-modal softmax engine needs a single-modal model, "
-            "not ported yet (ROADMAP A.5)")
+        cls = (MultiModalImageSoftmaxEngine if datamanager.num_streams > 1
+               else ImageSoftmaxEngine)
+        return cls(datamanager, model, optimizer, scheduler, **common)
     if name == "margin":
         return Image3MEngine(
             datamanager, model, optimizer, scheduler,

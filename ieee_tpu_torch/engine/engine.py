@@ -88,7 +88,8 @@ class Engine:
     through the folded head with the partpool kernel
     (``models/fast_eval.py``); other models take the plain forward. Off
     by default, as in the JAX package's engine.
-    ``seed`` seeds the device generator of the train transforms;
+    ``seed`` seeds the device generator of the train transforms and of
+    the model's dropout (``ReIDResNet.dropout_generator``);
     ``accum_steps`` is ``train.accum_steps``.
     """
 
@@ -109,6 +110,10 @@ class Engine:
         self.test_loader = datamanager.test_loader
         self.generator = torch.Generator(device=self.device).manual_seed(
             int(seed))
+        if hasattr(model, "dropout_generator"):
+            # dropout draws from the same seeded generator, as the JAX
+            # engine's dropout key comes from its seeded rng
+            model.dropout_generator = self.generator
         self.epoch = 0
         self.max_epoch = 1
         self._eval_step_fn = None

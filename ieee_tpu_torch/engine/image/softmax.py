@@ -7,8 +7,8 @@
   acc_R/N/T. It trains the ablation configs ``rgbnt_base_softmax.yaml``
   and ``rgbnt_cim_softmax.yaml``.
 - ``ImageSoftmaxEngine``: the single-modal CE engine (reference
-  ``softmax.py:137-228``); ``build_engine`` builds it once a single-modal
-  model is ported (ROADMAP A.5).
+  ``softmax.py:137-228``); metric ``acc``. It trains
+  ``market1501_softmax_r50.yaml`` (a ``ReIDResNet``).
 - ``_deep_ce``: the part-summed CE, which the 3M engine uses too.
 """
 

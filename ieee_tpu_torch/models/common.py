@@ -19,8 +19,8 @@ from torch import nn
 from ..ops.kernels.matmul_bn import mm_affine_act, mm_bn_act_train
 
 __all__ = ["FastBatchNorm", "ConvBN", "FusedConvBN1x1", "fused_conv_bn_1x1",
-           "fuse_worthwhile", "global_avg_pool", "global_max_pool",
-           "adaptive_avg_pool"]
+           "DenseBNReLU", "fuse_worthwhile", "global_avg_pool",
+           "global_max_pool", "adaptive_avg_pool"]
 
 
 def fuse_worthwhile(k_in: int, c_out: int, min_dim: int = 384) -> bool:
@@ -109,10 +109,10 @@ class FastBatchNorm(nn.Module):
 
 def conv_bn(x, conv: nn.Conv2d, bn: FastBatchNorm, nonlinear=None,
             dtype=torch.bfloat16):
-    """Conv (no bias) in ``dtype`` + BN [+ ReLU for ``nonlinear="relu"``]:
-    the plain path."""
+    """Conv (no bias, ``conv.groups`` groups) in ``dtype`` + BN [+ ReLU for
+    ``nonlinear="relu"``]: the plain path."""
     y = bn(F.conv2d(x.to(dtype), conv.weight.to(dtype), None, conv.stride,
-                    conv.padding))
+                    conv.padding, 1, conv.groups))
     return F.relu(y) if nonlinear == "relu" else y
 
 
@@ -185,6 +185,37 @@ class FusedConvBN1x1(ConvBN):
     def forward(self, x, residual=None):
         return fused_conv_bn_1x1(x, self.layers[0].weight, self.layers[1],
                                  self.nonlinear == "relu", residual)
+
+
+class DenseBNReLU(nn.Sequential):
+    """Linear + BatchNorm1d + ReLU [+ dropout]: the reference's
+    ``_construct_fc_layer`` unit for one dimension (``ieee_tpu/models/
+    common.py:DenseBNReLU``; keys ``0`` the Linear, ``1`` the BN). The
+    product runs in ``dtype``; the BN is flax's ``nn.BatchNorm`` in the JAX
+    package: f32, biased one-pass variance clipped at 0, momentum 0.9.
+    With ``dropout_p`` a training forward zeroes each output with that
+    probability, drawn from the ``generator`` it is given."""
+
+    def __init__(self, in_features: int, features: int,
+                 dtype: torch.dtype = torch.bfloat16, dropout_p=None):
+        super().__init__(nn.Linear(in_features, features),
+                         FastBatchNorm(features, dtype=torch.float32,
+                                       clip_var=True),
+                         nn.ReLU())
+        self.dtype = dtype
+        self.dropout_p = dropout_p or 0.0
+
+    def forward(self, x, generator=None):
+        dt = self.dtype
+        lin = self[0]
+        y = F.linear(x.to(dt), lin.weight.to(dt), lin.bias.to(dt))
+        y = F.relu(self[1](y)).to(dt)
+        if self.dropout_p and self.training:
+            p = self.dropout_p
+            keep = torch.rand(y.shape, generator=generator,
+                              device=y.device) >= p
+            y = torch.where(keep, y / (1.0 - p), torch.zeros_like(y))
+        return y
 
 
 def global_avg_pool(x):

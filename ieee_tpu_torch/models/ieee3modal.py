@@ -32,7 +32,7 @@ from torch import nn
 
 from .common import (
     ConvBN,
-    FastBatchNorm,
+    DenseBNReLU,
     FusedConvBN1x1,
     adaptive_avg_pool,
     fuse_worthwhile,
@@ -92,15 +92,6 @@ class NonLocalREM(nn.Module):
         return query + (self.param * 2.0).to(query.dtype) * f_part
 
 
-def _part_fc(dim, features, dtype):
-    # reference _construct_fc_layer unit: Linear + BatchNorm1d + ReLU; the
-    # BN is flax's nn.BatchNorm in the JAX package (f32, variance clipped)
-    return nn.Sequential(nn.Linear(dim, features),
-                         FastBatchNorm(features, dtype=torch.float32,
-                                       clip_var=True),
-                         nn.ReLU())
-
-
 def _l2norm(x, eps: float = 1e-12):
     return x / x.norm(dim=1, keepdim=True).clamp_min(eps)
 
@@ -152,7 +143,8 @@ class IEEE3modalPart(nn.Module):
                 NonLocalREM(pooling_dim, dtype=dtype) for _ in range(3))
         for m in _MODAL:
             self.add_module(f"fc_{m}", nn.ModuleList(
-                _part_fc(pooling_dim, fc_dim, dtype) for _ in range(parts)))
+                DenseBNReLU(pooling_dim, fc_dim, dtype)
+                for _ in range(parts)))
             self.add_module(f"classifier_{m}", nn.ModuleList(
                 nn.Linear(fc_dim, num_classes) for _ in range(parts)))
 

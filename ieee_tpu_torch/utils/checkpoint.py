@@ -10,8 +10,8 @@ sidecar (``model.pth.tar-<epoch>.json``: epoch, rank1) is written before
 the file it describes, and every write goes to a temporary name first and
 is renamed into place, so a killed run leaves no torn checkpoint (a kill
 between the two leaves an orphan sidecar, which nothing reads as a
-checkpoint). The transform generator's state is not saved, as the JAX
-package does not save its transform key: after a resume the augmentation
+checkpoint). The engine generator's state is not saved, as the JAX
+package does not save its key: after a resume the augmentation and dropout
 draws start again from the seed.
 """
 

@@ -78,7 +78,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "ieee_tpu_torch.tools.profile_train, "
             "ieee_tpu_torch.tools.eval_bench, "
             "ieee_tpu_torch.tools.eval_fwd_bench, "
-            "ieee_tpu_torch.tools.loader_bench; "
+            "ieee_tpu_torch.tools.loader_bench, ieee_tpu_torch.main, "
+            "ieee_tpu_torch.models.resnet, ieee_tpu_torch.models.weights, "
+            "ieee_tpu_torch.data.datasets.image.market1501, "
+            "ieee_tpu_torch.data.datasets.image.market_to_rgbnt201, "
+            "ieee_tpu_torch.data.datasets.image.allday, "
+            "ieee_tpu_torch.data.datasets.image.uav, "
+            "ieee_tpu_torch.data.datasets.image.synthetic; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'ieee_tpu.')) or m == 'ieee_tpu']; "
             "assert not bad, bad")

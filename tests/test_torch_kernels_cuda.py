@@ -124,6 +124,37 @@ def test_distmat_kernel_runs_are_bit_identical(cuda, m, n, k):
     assert torch.equal(got, again)
 
 
+# the single-modal models' feature widths, K = 2048 (resnet50) and 512
+# (resnet18/34), at Market-1501's 3368 x 15913 (no split), RGBNT201-sized
+# 836 x 836 (5 parts of 13 steps, the last 12; at K 512, 2 parts), and M
+# and N off the 128-row tile with splits of 2 to 16 parts (837 x 1001,
+# 129 x 131, 1 x 77, 100 x 300): against the plain version (1e-5 of the
+# largest entry), against float64 on at most 500 query rows (twice the
+# plain version's error plus 2^-23 of the largest entry), and twice, bit
+# for bit
+@pytest.mark.parametrize("m,n,k", [(3368, 15913, 2048), (836, 836, 2048),
+                                   (836, 836, 512), (837, 1001, 2048),
+                                   (129, 131, 512), (1, 77, 2048),
+                                   (100, 300, 512)])
+def test_distmat_kernel_at_the_single_modal_widths(cuda, m, n, k):
+    q, g = _features((m, k), 14, cuda), _features((n, k), 15, cuda)
+    before = kernels.LAUNCHES["distmat"]
+    got, again = euclidean_sq(q, g), euclidean_sq(q, g)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["distmat"] == before + 2
+    assert torch.equal(got, again)
+    want = euclidean_sq_plain(q, g)
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+    q64, g64 = q[:500].double(), g.double()
+    ref = ((q64 * q64).sum(1)[:, None] + (g64 * g64).sum(1)[None, :]
+           - 2.0 * q64 @ g64.T)
+    err64 = (got[:500].double() - ref).abs().max().item()
+    plain64 = (want[:500].double() - ref).abs().max().item()
+    assert err64 <= 2 * plain64 + 2 ** -23 * ref.abs().max().item(), (
+        err64, plain64)
+
+
 # the forward kernels' (csrc/mm_sm90.cuh) tiling edges: N of 1, 129 and
 # 1037 (off the 128-row tile), C of 8, 264 and 768 (off the 256-wide
 # tile), K of 8, 24, 40 and 264 (off the 64-deep step), and shapes that
