@@ -134,6 +134,30 @@ Phases (any failure raises and exits non-zero):
    rankings by the kernel's and the plain distmat may differ in at most
    two queries (mAP and each CMC rank within 2 / m).
 
+11. The int8 eval path (``cuda.int8_eval``), counts set to 0 just before
+   each run and read just after. (a) ``conv_s8`` at every distinct conv
+   site of ResNet-50 at 256x128 (last_stride 1, batch 100: the IEEE
+   trunk's 22 shapes, weighted by their count in one trunk's 53 sites),
+   at the shapes the feature extractor's resnet50 (last_stride 2, batch
+   32) adds and at resnet18's basic-block shapes (batch 4): the raw s32
+   sums must equal the plain version's exactly and the bf16 output be
+   within one bf16 step of it; the kernel's, the plain version's and cuDNN's
+   bf16 ``conv2d`` times (a different function: the yardstick) beside the
+   bound (operations over 1,979 TOP/s or bytes over 3.35 TB/s), and
+   ``torch._int_mm``'s at the 1x1 sites. (b) The engine's eval of the
+   full-width IEEE model (seeded weights built once) on phase 4's
+   ``synthetic_mm``, plain, fused and int8 at batch 100: finite int8
+   features; a per-row cosine of at least 0.999 against the same int8
+   path on ``conv_s8``'s plain version with the same scales; the cosine and
+   the mAP against the plain path (printed); one steady batch launches 159
+   ``conv_s8`` (53 sites x 3 trunks) and 6 ``partpool`` kernels and no
+   cuDNN conv (no ``F.conv2d`` call, no conv kernel in its profile); the
+   three paths' ms a batch (phase 4's way). (c) ``FeatureExtractor
+   ("resnet50", int8=True)`` at batch 32 against its plain path: finite,
+   53 ``conv_s8`` launches, the cosine printed. (d) ``int8_probe`` and
+   ``int8_e2e_eval`` at small iteration counts, each launching
+   ``conv_s8``.
+
 Each phase prints its seconds, and the run its total. The line before the
 last is the JSON list of kernels; the last line is ``{"ok": true,
 "device": {...}}``.
@@ -179,6 +203,9 @@ KERNELS = {
                    "tools/bw_probe.py:66, tools/bw_probe.py:89"),
     "bn_mm": ("ieee_tpu_torch/csrc/bn_gemm_sm90.cu",
               "tools/fusion_probe.py:129"),
+    # no Pallas kernel: the JAX int8 path's s8 conv is XLA's (_conv_nhwc)
+    "conv_s8": ("ieee_tpu_torch/csrc/conv_s8.cu",
+                "ieee_tpu/models/int8_eval.py:122"),
 }
 EVAL_KERNELS = ("distmat", "partpool", "mm_affine")
 TRAIN_KERNELS = ("mm_stats", "mm_bn_da", "mm_bn_dw")
@@ -212,6 +239,15 @@ TOOLS = (("bw_probe", [], ("scale_bf16",), ()),
                                               "reduce3", "partpool"), ()))
 # blocks on the block path per train step (10 per trunk, 3 trunks)
 BLOCKS_PER_STEP = 30
+# phase 11: conv sites of one ResNet-50 trunk, and the two int8 tools with
+# their arguments (besides --device cuda) and the kernels they must launch
+INT8_SITES = 53
+INT8_TOOLS = (("int8_probe", ["--iters", "3"], ("conv_s8",), ()),
+              ("int8_e2e_eval", ["--pids", "16", "--imgs-per-pid", "4",
+                                 "--fwd-iters", "3", "--out",
+                                 os.path.join(ROOT, "log", "chip_smoke_int8",
+                                              "INT8_EVAL.json")],
+               ("conv_s8", "partpool", "distmat"), ()))
 # phase 9: the ablation configs, and the short synthetic set they train on
 # (8 ids x 4 images: 4 steps of the configs' batch 8 an epoch)
 ABLATION = {name: os.path.join(ROOT, "configs", f"rgbnt_{name}_softmax.yaml")
@@ -264,7 +300,7 @@ def die(msg: str, code: int = 2):
 
 # the timing helpers of the checkout's package
 # (ieee_tpu_torch/tools/_timing.py), bound by main() once it has found it
-card_line = median_ms = bound_ms = None
+card_line = median_ms = bound_ms = short_name = None
 
 
 def demangle(name: str) -> str:
@@ -1647,9 +1683,278 @@ def single_modal_market(results):
     distmat_scale(results, 836, 836, 512, check_ranks=True)
 
 
-def run_tools():
-    """Phase 8: each measurement tool's ``main()`` on the card; returns
-    the launch counts of each run, by the tool's name and arguments."""
+def _cos_rows(a, b):
+    return (a * b).sum(1) / (a.norm(dim=1) * b.norm(dim=1)).clamp_min(1e-12)
+
+
+def check_conv_s8(results):
+    """Phase 11 (a): conv_s8 at every distinct site shape against its plain
+    version, with the times of the kernel, the plain version, cuDNN's bf16
+    conv2d and (1x1 sites) torch._int_mm beside the bound."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from ieee_tpu_torch.ops.kernels.conv_s8 import conv_s8, conv_s8_plain
+    from ieee_tpu_torch.tools.int8_probe import distinct_sites, site_work
+
+    # (shape, x dtype, relu, weight): the IEEE trunk's sites at the engine
+    # eval's batch weighted by their count in one trunk (the reported unit);
+    # the feature extractor's resnet50 and resnet18's basic blocks add the
+    # shapes not seen yet, outside the unit
+    cases, seen = [], set()
+    for spec, weighted in (((100, 256, 128, "bottleneck", (3, 4, 6, 3), 1),
+                            True),
+                           ((32, 256, 128, "bottleneck", (3, 4, 6, 3), 2),
+                            False),
+                           ((4, 256, 128, "basic", (2, 2, 2, 2), 2), False)):
+        b, h, w, block, layers, last_stride = spec
+        for shape, dtype, relu, count in distinct_sites(
+                b, h, w, block, layers, last_stride):
+            if (shape[1:], dtype) in seen:
+                continue
+            seen.add((shape[1:], dtype))
+            cases.append((shape, dtype, relu, count if weighted else 0))
+    r = results.setdefault("conv_s8", {"max_abs_err": 0.0, "cases": []})
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    for i, (shape, dtype, relu, weight) in enumerate(cases):
+        b, h, w, cin, cout, k, stride, pad = shape
+        rng = np.random.default_rng(100 + i)
+        x = torch.tensor(rng.standard_normal((b, h, w, cin), np.float32),
+                         device="cuda").to(dtype)
+        wq = torch.tensor(rng.integers(-127, 128, (cout, k, k, cin),
+                                       dtype=np.int8), device="cuda")
+        scale = torch.tensor(rng.uniform(1e-4, 1e-3, cout).astype(
+            np.float32), device="cuda")
+        bias = torch.tensor(rng.standard_normal(cout).astype(np.float32),
+                            device="cuda")
+        # the calibrated scale of this input: absmax / 127, inverted in f32
+        inv_sx = float(np.float32(127.0 / x.float().abs().max().item()))
+        args = (stride, pad, relu, inv_sx)
+        acc = conv_s8(x, wq, None, None, *args, raw=True)
+        want_acc = conv_s8_plain(x, wq, None, None, *args, raw=True)
+        got = conv_s8(x, wq, scale, bias, *args)
+        want = conv_s8_plain(x, wq, scale, bias, *args)
+        torch.cuda.synchronize()
+        w32 = want.float()
+        ulp = torch.where(w32 == 0, torch.zeros_like(w32),
+                          2.0 ** (torch.floor(torch.log2(w32.abs())) - 7))
+        diff = (got.float() - w32).abs()
+        err = diff.max().item()
+        exact = torch.equal(acc, want_acc)
+        if not exact or not bool((diff <= ulp).all()):
+            raise AssertionError(f"conv_s8 {shape} disagrees with its plain "
+                                 f"version: s32 equal {exact}, bf16 max "
+                                 f"error {err}")
+        ms = median_ms(lambda: conv_s8(x, wq, scale, bias, *args), 10)
+        plain_ms = median_ms(
+            lambda: conv_s8_plain(x, wq, scale, bias, *args), 3, warmup=1)
+        xc = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+        wc = wq.to(torch.bfloat16).permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        lib_ms = median_ms(lambda: F.conv2d(xc, wc, None, stride, pad), 10)
+        int_mm = ""
+        if k == 1:
+            # the product alone on the gathered, quantized rows
+            xs = x[:, ::stride, ::stride] if stride > 1 else x
+            rows = torch.clamp(torch.round(xs.float() * inv_sx), -127,
+                               127).to(torch.int8).reshape(-1, cin)
+            bt = wq.reshape(cout, cin).t()
+            mm_ms = median_ms(lambda: torch._int_mm(rows, bt), 10)
+            int_mm = f" _int_mm {mm_ms:.4f} ms (product only)"
+        ops, nbytes = site_work(shape, dtype)
+        bound = bound_ms(ops, nbytes, "int8")
+        print(f"kernel conv_s8 {list(shape)} {str(dtype)[6:]} (x{weight}): "
+              f"s32 equal, bf16 max_abs_err {err:.3e} (tol one bf16 step) "
+              f"kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s) plain "
+              f"{plain_ms:.4f} ms library {lib_ms:.4f} ms (cuDNN bf16 "
+              f"conv2d){int_mm} bound {bound[0]:.4f} ms ({bound[1]})")
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["cases"].append({"shape": list(shape), "ms": ms,
+                           "plain_ms": plain_ms, "library_ms": lib_ms,
+                           "bound_ms": bound[0], "bound_by": bound[1],
+                           "max_abs_err": err, "weight": weight})
+        for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                       ("library_ms", lib_ms), ("bound_ms", bound[0])):
+            total[key] += weight * v
+        del x, wq, acc, want_acc, got, want, xc, wc
+    torch.cuda.empty_cache()
+    print(f"conv_s8 per trunk ({INT8_SITES} sites, batch 100): kernel "
+          f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, cuDNN "
+          f"bf16 {total['library_ms']:.4f} ms, bound "
+          f"{total['bound_ms']:.4f} ms")
+
+
+def int8_engine_eval():
+    """Phase 11 (b): the engine's eval, plain, fused and int8, on one
+    model; returns the launch counts of the int8 run (the main path)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ieee_tpu_torch.data import ImageDataManager
+    from ieee_tpu_torch.engine import Engine
+    from ieee_tpu_torch.models import build_model
+    from ieee_tpu_torch.models import int8_eval as ie
+    from ieee_tpu_torch.models.fast_eval import head_from_maps
+    from ieee_tpu_torch.ops import kernels
+    from ieee_tpu_torch.ops.distance import compute_distance_matrix
+    from ieee_tpu_torch.ops.kernels.conv_s8 import conv_s8_plain
+    from ieee_tpu_torch.ops.ranking import evaluate_rank
+    from torch.profiler import ProfilerActivity, profile
+
+    dm = ImageDataManager(sources="synthetic_mm", height=256, width=128,
+                          batch_size_test=100, workers=4, num_pids=171,
+                          imgs_per_pid=8, verbose=False)
+    loaders = dm.test_loader["synthetic_mm"]
+    model = build_model("ieee3modalPart", dm.num_train_pids, "margin",
+                        pretrained=False, seed=1)
+    batch = next(iter(loaders["gallery"]))["img"]
+    imgs = tuple(torch.from_numpy(m).cuda() for m in batch)
+
+    def features(eng):
+        qf, q_pids, q_cams = eng._feature_extraction(loaders["query"])
+        gf, g_pids, g_cams = eng._feature_extraction(loaders["gallery"])
+        cmc, mAP = evaluate_rank(compute_distance_matrix(qf, gf), q_pids,
+                                 g_pids, q_cams, g_cams)
+        return torch.cat([qf, gf]), float(mAP), float(cmc[0])
+
+    engines, feats, ms, counts = {}, {}, {}, {}
+    for name, kw in (("plain", {}), ("fused", {"fused_eval": True}),
+                     ("int8", {"int8_eval": True})):
+        eng = engines[name] = Engine(dm, model, device="cuda", **kw)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        feats[name] = features(eng)
+        torch.cuda.synchronize()
+        counts[name] = kernels.launch_counts()
+        host_s = time.perf_counter() - t0
+        ms[name] = median_ms(lambda: eng.extract_features(imgs), iters=10)
+        f, mAP, rank1 = feats[name]
+        print(f"int8 phase, engine eval {name}: {ms[name]:.3f} ms/batch "
+              f"(batch 100, {100 / ms[name] * 1e3:.1f} triplets/s); 510 "
+              f"triplets incl. host decode {host_s:.3f} s; mAP {mAP:.4f} "
+              f"rank1 {rank1:.4f}; launches "
+              f"{ {k: v for k, v in counts[name].items() if v} }")
+        if not torch.isfinite(f).all() or f.shape != (510, 2304):
+            raise AssertionError(f"{name} features bad: {tuple(f.shape)}")
+    batches = -(-170 // 100) + -(-340 // 100)
+    if counts["int8"]["conv_s8"] != batches * 3 * INT8_SITES:
+        raise AssertionError(f"int8 eval: not {3 * INT8_SITES} conv_s8 "
+                             f"launches in each of {batches} batches: "
+                             f"{counts['int8']}")
+    q8 = feats["int8"][0]
+    cos = _cos_rows(q8, feats["plain"][0])
+    print(f"int8 vs plain (bf16) features: min cosine {cos.min().item():.6f}"
+          f", mean {cos.mean().item():.6f}; mAP {feats['int8'][1]:.4f} vs "
+          f"{feats['plain'][1]:.4f}")
+
+    # the same int8 path with every conv on conv_s8's plain version and the
+    # scales the engine's step calibrated: the kernel, not the quantization
+    step = engines["int8"]._eval_step_fn
+    scales, tfm = step.holder["scales"], dm.transform_te
+    execs = [ie.make_trunk_exec(t.block, t.layers, t.last_stride)
+             for t in model.backbone]
+
+    @torch.inference_mode()
+    def ref_step(imgs):
+        xs = [tfm(m).permute(0, 2, 3, 1).contiguous() for m in imgs]
+        maps = [ie.trunk_forward_int8(execs[i], model.backbone[i], xs[i],
+                                      scales[i], conv_fn=conv_s8_plain)
+                for i in range(3)]
+        return head_from_maps(model, [m.permute(0, 3, 1, 2) for m in maps])
+
+    ref = Engine(dm, model, device="cuda")
+    ref._eval_step_fn = ref_step
+    t0 = time.perf_counter()
+    want = features(ref)[0]
+    cos = _cos_rows(q8, want)
+    print(f"int8 features vs the plain conv's with the same scales: min "
+          f"cosine {cos.min().item():.8f}, max |diff| "
+          f"{(q8 - want).abs().max().item():.3e} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if cos.min().item() < 0.999:
+        raise AssertionError(f"int8 features disagree with the plain "
+                             f"conv's: cosine {cos.min().item()}")
+
+    # one steady batch: the kernels it launches, no F.conv2d call and no
+    # cuDNN conv kernel in its profile
+    calls = []
+    conv2d = F.conv2d
+
+    def counting(*args, **kw):
+        calls.append(1)
+        return conv2d(*args, **kw)
+
+    F.conv2d = counting
+    try:
+        kernels.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            engines["int8"].extract_features(imgs)
+            torch.cuda.synchronize()
+        steady = kernels.launch_counts()
+    finally:
+        F.conv2d = conv2d
+    rows = sorted(((e.key, e.count, e.self_device_time_total / 1e3)
+                   for e in prof.key_averages()
+                   if e.self_device_time_total > 0), key=lambda r: -r[2])
+    convs = [k for k, _, _ in rows if "conv_s8" not in k and any(
+        t in k.lower() for t in ("conv", "fprop", "cudnn", "dgrad"))]
+    s8 = sum(n for k, n, _ in rows if "conv_s8" in k)
+    print(f"int8 steady batch: launches "
+          f"{ {k: v for k, v in steady.items() if v} }, F.conv2d calls "
+          f"{len(calls)}, profiled conv_s8 kernels {s8}, other conv kernels "
+          f"{convs}; device {sum(r[2] for r in rows):.3f} ms in "
+          f"{sum(r[1] for r in rows)} kernels, top:")
+    for key, n, dev_ms in rows[:8]:
+        print(f"  {dev_ms:9.3f} ms ({n}) {short_name(key)[:90]}")
+    want_counts = dict.fromkeys(steady, 0)
+    want_counts.update(conv_s8=3 * INT8_SITES, partpool=6)
+    if steady != want_counts or calls or convs:
+        raise AssertionError(f"int8 steady batch: launches {steady}, "
+                             f"F.conv2d calls {len(calls)}, conv kernels "
+                             f"{convs}")
+    print(f"int8 eval at batch 100: {ms['int8']:.3f} ms/batch, plain "
+          f"{ms['plain']:.3f}, fused {ms['fused']:.3f}")
+    del engines, ref, model
+    torch.cuda.empty_cache()
+    return counts["int8"]
+
+
+def int8_feature_extractor():
+    """Phase 11 (c): FeatureExtractor("resnet50", int8=True) at batch 32
+    against its plain path."""
+    import numpy as np
+    import torch
+
+    from ieee_tpu_torch.ops import kernels
+    from ieee_tpu_torch.utils.feature_extractor import FeatureExtractor
+
+    batch = np.random.default_rng(7).integers(0, 256, (32, 256, 128, 3),
+                                              dtype=np.uint8)
+    fe8 = FeatureExtractor("resnet50", pretrained=False, int8=True)
+    fe = FeatureExtractor("resnet50", pretrained=False)
+    fe8(batch)  # calibrates
+    kernels.reset_launch_counts()
+    f8 = fe8(batch)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    f = fe(batch)
+    cos = _cos_rows(f8, f)
+    print(f"feature extractor resnet50 int8 vs plain (batch 32): min cosine "
+          f"{cos.min().item():.6f}, mean {cos.mean().item():.6f}; launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    if (f8.shape != (32, 2048) or not torch.isfinite(f8).all()
+            or counts["conv_s8"] != INT8_SITES):
+        raise AssertionError(f"feature extractor int8: {tuple(f8.shape)}, "
+                             f"launches {counts}")
+    del fe8, fe
+    torch.cuda.empty_cache()
+
+
+def run_tools(tools=TOOLS):
+    """Phase 8 (and 11's int8 tools): each measurement tool's ``main()`` on
+    the card; returns the launch counts of each run, by the tool's name and
+    arguments."""
     import importlib
 
     import torch
@@ -1657,7 +1962,7 @@ def run_tools():
     from ieee_tpu_torch.ops import kernels
 
     launches = {}
-    for name, argv, must, must_not in TOOLS:
+    for name, argv, must, must_not in tools:
         tool = importlib.import_module(f"ieee_tpu_torch.tools.{name}")
         run = " ".join([name] + argv)
         print(f"tool {run}", flush=True)
@@ -1702,9 +2007,10 @@ def main():
             ieee_tpu_torch.__file__).startswith(ROOT + os.sep):
         die(f"ieee_tpu_torch not found next to {__file__}: run from the root "
             "of a checkout")
-    global card_line, median_ms, bound_ms
+    global card_line, median_ms, bound_ms, short_name
     from ieee_tpu_torch.ops import _build
-    from ieee_tpu_torch.tools._timing import bound_ms, card_line, median_ms
+    from ieee_tpu_torch.tools._timing import (bound_ms, card_line, median_ms,
+                                              short_name)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1773,6 +2079,12 @@ def main():
     single_modal_market(results)
     print(f"phase single-modal and Market configs: "
           f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    check_conv_s8(results)
+    int8_counts = int8_engine_eval()
+    int8_feature_extractor()
+    run_tools(INT8_TOOLS)
+    print(f"phase int8 eval: {time.perf_counter() - t0:.1f} s")
 
     # each kernel's reported numbers: the weighted sum of its cases, where
     # the weight is how often the case runs in the reported unit: distmat
@@ -1784,9 +2096,12 @@ def main():
     # 16384 x 2048 x 2048 call. launches: the train path's runs (phase 6),
     # the default one for the first six kernels and the block one for the
     # block kernels; the probe kernels' from their tools' runs (phase 8),
-    # and mm_stats adds fusion_probe's calls to the train path's
+    # and mm_stats adds fusion_probe's calls to the train path's; conv_s8
+    # over the 53 sites of one trunk at batch 100, its launches from the
+    # int8 engine eval (phase 11)
     launches = {name: (block_counts if name in BLOCK_KERNELS
                        else counts)[name] for name in KERNELS}
+    launches["conv_s8"] = int8_counts["conv_s8"]
     launches["scale_bf16"] = tool_counts["bw_probe"]["scale_bf16"]
     for name in ("mm_stats", "bn_mm"):
         launches[name] += tool_counts["fusion_probe"][name]

@@ -154,6 +154,12 @@ def get_default_config() -> ConfigNode:
     # (models/fast_eval.py). Off by default, as in the JAX package
     # (cfg.tpu.fused_eval), until measured times say otherwise
     cfg.cuda.fused_eval = False
+    # the w8a8 post-training-quantized eval/serving path
+    # (models/int8_eval.py): every trunk conv on the conv_s8 CUDA kernel,
+    # activation scales calibrated on the first eval batch. Off by default,
+    # as in the JAX package (cfg.tpu.int8_eval); re-validate the retrieval
+    # quality per checkpoint before serving
+    cfg.cuda.int8_eval = False
     # the JAX package's whole-block backward (cfg.tpu.block_megakernel): in
     # training, every stride-1 bottleneck without downsample of width <= 256
     # (layer1-3, 10 blocks per trunk) runs as bottleneck_train, whose

@@ -22,6 +22,7 @@ def build_engine(cfg, datamanager, model, optimizer=None, scheduler=None,
     ``scripts/mainMultiModal.py:45-130``)."""
     name = cfg.loss.name
     common = dict(device=device, fused_eval=bool(cfg.cuda.fused_eval),
+                  int8_eval=bool(cfg.cuda.int8_eval),
                   seed=cfg.train.seed,
                   accum_steps=int(cfg.train.accum_steps),
                   label_smooth=cfg.loss.softmax.label_smooth)

@@ -43,6 +43,11 @@ import torch
 
 from ..models.common import FastBatchNorm
 from ..models.fast_eval import build_fast_ieee_eval_step, supports_fast_eval
+from ..models.int8_eval import (
+    build_int8_ieee_eval_step,
+    build_int8_reid_eval_step,
+    supports_int8_eval,
+)
 from ..ops import compute_distance_matrix, evaluate_rank
 from ..optim import set_lr
 from ..utils.avgmeter import AverageMeter, MetricMeter
@@ -87,7 +92,12 @@ class Engine:
     ``fused_eval`` (``cfg.cuda.fused_eval``) routes the full IEEE model
     through the folded head with the partpool kernel
     (``models/fast_eval.py``); other models take the plain forward. Off
-    by default, as in the JAX package's engine.
+    by default, as in the JAX package's engine. ``int8_eval``
+    (``cfg.cuda.int8_eval``) routes the IEEE model with the full head and
+    ungrouped ``ReIDResNet``s through the w8a8 path with the conv_s8
+    kernel (``models/int8_eval.py``) and takes precedence over
+    ``fused_eval``, as in the JAX engine; another model warns and takes
+    the plain forward.
     ``seed`` seeds the device generator of the train transforms and of
     the model's dropout (``ReIDResNet.dropout_generator``);
     ``accum_steps`` is ``train.accum_steps``.
@@ -95,7 +105,7 @@ class Engine:
 
     def __init__(self, datamanager, model, optimizer=None, scheduler=None,
                  device="cuda", fused_eval: bool = False, seed: int = 1,
-                 accum_steps: int = 1):
+                 accum_steps: int = 1, int8_eval: bool = False):
         if int(accum_steps) < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         self.accum_steps = int(accum_steps)
@@ -106,6 +116,7 @@ class Engine:
         self.scheduler = scheduler or (lambda epoch: 0.0)
         self.device = torch.device(device)
         self.fused_eval = fused_eval
+        self.int8_eval = int8_eval
         self.train_loader = datamanager.train_loader
         self.test_loader = datamanager.test_loader
         self.generator = torch.Generator(device=self.device).manual_seed(
@@ -318,6 +329,13 @@ class Engine:
     def _build_eval_step(self):
         model = self.model
         tfm = self.datamanager.transform_te
+        if self.int8_eval:
+            if supports_int8_eval(model):
+                if supports_fast_eval(model):
+                    return build_int8_ieee_eval_step(model, transform=tfm)
+                return build_int8_reid_eval_step(model, transform=tfm)
+            print("WARN: cuda.int8_eval unsupported for "
+                  f"{type(model).__name__}; using the plain path")
         if self.fused_eval and supports_fast_eval(model):
             return build_fast_ieee_eval_step(model, transform=tfm)
 

@@ -19,7 +19,7 @@ from torch import nn
 from ..ops.kernels.matmul_bn import mm_affine_act, mm_bn_act_train
 
 __all__ = ["FastBatchNorm", "ConvBN", "FusedConvBN1x1", "fused_conv_bn_1x1",
-           "DenseBNReLU", "fuse_worthwhile", "global_avg_pool",
+           "DenseBNReLU", "conv2d", "fuse_worthwhile", "global_avg_pool",
            "global_max_pool", "adaptive_avg_pool"]
 
 
@@ -107,12 +107,26 @@ class FastBatchNorm(nn.Module):
                 + shift.to(dt).view(shape))
 
 
+def conv2d(x, w, stride=1, padding=0, groups=1):
+    """``F.conv2d`` of ``x`` and ``w`` (no bias), both in the compute dtype.
+    On the CPU a bf16 or f16 conv runs as f32 sums of the same operands,
+    rounded once to the dtype (what XLA's CPU conv computes): PyTorch's CPU
+    bf16 conv (oneDNN) gives results that vary from call to call, lose
+    accuracy (a resnet18's features at cosine 0.985 against its f32
+    forward, where ``tests/test_torch_feature_extractor.py`` asks for
+    0.999) and now and then hold NaN on several threads."""
+    if x.device.type == "cpu" and x.dtype in (torch.bfloat16, torch.float16):
+        return F.conv2d(x.float(), w.float(), None, stride, padding, 1,
+                        groups).to(x.dtype)
+    return F.conv2d(x, w, None, stride, padding, 1, groups)
+
+
 def conv_bn(x, conv: nn.Conv2d, bn: FastBatchNorm, nonlinear=None,
             dtype=torch.bfloat16):
     """Conv (no bias, ``conv.groups`` groups) in ``dtype`` + BN [+ ReLU for
     ``nonlinear="relu"``]: the plain path."""
-    y = bn(F.conv2d(x.to(dtype), conv.weight.to(dtype), None, conv.stride,
-                    conv.padding, 1, conv.groups))
+    y = bn(conv2d(x.to(dtype), conv.weight.to(dtype), conv.stride,
+                  conv.padding, conv.groups))
     return F.relu(y) if nonlinear == "relu" else y
 
 

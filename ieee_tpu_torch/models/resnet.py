@@ -207,6 +207,10 @@ class ResNetTrunk(nn.Module):
         extra = (dict(fused_1x1=fused_1x1, block_megakernel=block_megakernel)
                  if block == "bottleneck" else {})
         self.dtype = dtype
+        # the spec, as the JAX ResNetTrunk's fields (the int8 walker reads it)
+        self.block = block
+        self.layers = tuple(layers)
+        self.last_stride = last_stride
         self.conv1 = _conv(3, 64, 7, 2, 3)
         self.bn1 = FastBatchNorm(64, dtype=dtype)
         in_planes = 64

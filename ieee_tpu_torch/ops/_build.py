@@ -57,6 +57,7 @@ _SIGNATURES = {
     "ieee_block_bn1_apply": [_P] * 9 + [_I] * 5 + [_P],
     "ieee_scale_bf16": [_P, _P, _F, _I, _I, _I, _I, _P],
     "ieee_bn_mm_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "ieee_conv_s8": [_P, _I] + [_P] * 4 + [_I] * 11 + [_F, _I, _I, _I, _P],
     "ieee_wait_report": [ctypes.c_char_p, _I],
 }
 

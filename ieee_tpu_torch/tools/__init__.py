@@ -12,7 +12,10 @@ host clock).
 - ``profile_train``: train steps/s at bench.py's protocol and the device
   time by kernel (``torch.profiler``).
 - ``eval_bench``, ``eval_fwd_bench``: the distmat with CMC/mAP at
-  Market-1501 scale, and the plain vs fused eval forward.
+  Market-1501 scale, and the plain, fused and int8 eval forward.
+- ``int8_probe``, ``int8_e2e_eval``: the ``conv_s8`` kernel at each
+  ResNet-50 site against cuDNN bf16 and ``torch._int_mm``, and the
+  engine's whole eval plain against int8 (wall, forward ms, mAP delta).
 - ``loader_bench``: the train loader's batches/s against a step rate.
 - ``train_e2e``, ``summarize_e2e``, ``ablation_sweep``, ``diag_train``:
   the paper's Table-3 drivers (a convergence run of one ablation variant

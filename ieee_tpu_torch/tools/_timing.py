@@ -21,9 +21,10 @@ __all__ = ["HBM_BPS", "PEAK", "parse_tool_args", "card_line",
            "device_line", "median_ms", "queued_ms", "kernel_ms",
            "short_name", "bound_ms"]
 
-#: H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, FLOP/s by type
+#: H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, FLOP/s (int8:
+#: OP/s) by type
 HBM_BPS = 3.35e12
-PEAK = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
+PEAK = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12, "int8": 1979e12}
 
 
 def parse_tool_args(parser: argparse.ArgumentParser, argv=None):

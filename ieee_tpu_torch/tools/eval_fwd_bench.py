@@ -1,7 +1,9 @@
 """Eval-forward benchmark: the plain eval forward of the IEEE model
 against the fused folded-BN head with the partpool kernel
-(``models/fast_eval.py``, ``cfg.cuda.fused_eval``), on one batch of
-uint8 triplets at 256x128 already on the device, random weights.
+(``models/fast_eval.py``, ``cfg.cuda.fused_eval``) and the w8a8 path with
+the conv_s8 kernel (``models/int8_eval.py``, ``cfg.cuda.int8_eval``), on
+one batch of uint8 triplets at 256x128 already on the device, random
+weights.
 
 Counterpart of ``tools/eval_fwd_bench.py``. Both paths run the same model
 after the test transform, built as the JAX tool builds it: without
@@ -10,10 +12,11 @@ package). So the "plain" line is the plain forward, the JAX tool's "plain
 flax" line, and the "fused" line is the folded head with ``partpool``,
 whose trunks launch no ``mm_affine``. ``--fused`` builds the model with
 ``fused_1x1=True``: both paths' layer4 1x1 sites then run the ``mm_affine``
-kernel. Each path is timed as the median of single calls (CUDA events)
-after warm-up, then the two features are compared. The JAX tool's third
-path, the int8 PTQ eval (``models/int8_eval.py``), is not ported yet
-(ROADMAP A.7); the tool says so on a line of its own.
+kernel. The "int8 PTQ" line calibrates its activation scales on the
+batch in its first (warm-up) call, then runs every trunk conv on conv_s8
+and the head as the fused line. Each path is timed as the median of single
+calls (CUDA events) after warm-up, then the features are compared: fused
+against plain (max relative deviation), int8 against plain (cosine).
 
 Usage: python -m ieee_tpu_torch.tools.eval_fwd_bench [batch] [--fused]
     [--device cuda]
@@ -37,6 +40,7 @@ def run(batch: int = 100, device="cuda", height: int = 256,
         fused: bool = False) -> dict:
     from ..data.transforms import build_transforms
     from ..models.fast_eval import build_fast_ieee_eval_step
+    from ..models.int8_eval import build_int8_ieee_eval_step
 
     device = torch.device(device)
     model = build_ieee(device, fused, 171, backbone_layers)
@@ -48,25 +52,31 @@ def run(batch: int = 100, device="cuda", height: int = 256,
         for _ in range(3))
 
     fast = build_fast_ieee_eval_step(model, transform=tfm_te)
+    int8 = build_int8_ieee_eval_step(model, transform=tfm_te)
 
     @torch.inference_mode()
     def plain(imgs):
         return model(tuple(tfm_te(m) for m in imgs))
 
     out = {}
-    for name, fn in (("plain", plain), ("fused", fast)):
+    for name, fn in (("plain", plain), ("fused", fast), ("int8 PTQ", int8)):
         ms = median_ms(lambda: fn(imgs), iters, device=device)
         out[name] = ms
         print(f"{name}: {ms:.1f} ms/batch ({batch / ms * 1e3:.0f} "
               "triplets/s)", flush=True)
-    print("int8 PTQ: not ported yet (ROADMAP A.7)")
     a = plain(imgs).float()
     b = fast(imgs).float()
+    q = int8(imgs).float()
     err = ((a - b).abs().max() / a.abs().max().clamp_min(1e-6)).item()
     print(f"max rel deviation fused vs plain: {err:.4f}")
-    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+    cos = (a * q).sum(-1) / (a.norm(dim=-1) * q.norm(dim=-1)).clamp_min(
+        1e-12)
+    print(f"int8 vs plain feature cosine: min {cos.min().item():.4f} "
+          f"mean {cos.mean().item():.4f}")
+    if not all(torch.isfinite(f).all() for f in (a, b, q)):
         raise AssertionError("eval features not finite")
     out["rel_dev"] = err
+    out["int8_cos_min"] = cos.min().item()
     return out
 
 

@@ -46,6 +46,8 @@ def test_cuda_section_defaults_and_typed_overrides():
     # and cfg.tpu.fused_eval (False)
     assert cfg.cuda.fused_1x1 is False and cfg.cuda.fused_eval is False
     assert cfg.cuda.block_megakernel is False
+    # and cfg.tpu.int8_eval (False)
+    assert cfg.cuda.int8_eval is False
     cfg.merge_from_list(["cuda.fused_eval", "True", "test.batch_size", "64"])
     assert cfg.cuda.fused_eval is True and cfg.test.batch_size == 64
     with pytest.raises(TypeError):
@@ -84,7 +86,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "ieee_tpu_torch.data.datasets.image.market_to_rgbnt201, "
             "ieee_tpu_torch.data.datasets.image.allday, "
             "ieee_tpu_torch.data.datasets.image.uav, "
-            "ieee_tpu_torch.data.datasets.image.synthetic; "
+            "ieee_tpu_torch.data.datasets.image.synthetic, "
+            "ieee_tpu_torch.models.int8_eval, "
+            "ieee_tpu_torch.ops.kernels.conv_s8, "
+            "ieee_tpu_torch.utils.feature_extractor, "
+            "ieee_tpu_torch.tools.int8_probe, "
+            "ieee_tpu_torch.tools.int8_e2e_eval; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'ieee_tpu.')) or m == 'ieee_tpu']; "
             "assert not bad, bad")

@@ -22,6 +22,7 @@ from ieee_tpu.ops.pallas.partpool import (
     fused_partpool_project as jax_partpool,
 )
 from ieee_tpu_torch.ops import kernels
+from ieee_tpu_torch.ops.kernels.conv_s8 import conv_s8, conv_s8_plain
 from ieee_tpu_torch.ops.kernels.distmat import euclidean_sq, euclidean_sq_plain
 from ieee_tpu_torch.ops.kernels.matmul_bn import (
     mm_affine_act,
@@ -241,10 +242,15 @@ def test_wrappers_take_the_plain_version_on_cpu_and_count_nothing():
     x = torch.tensor(_np((2, 4, 2, 16), 14))
     torch.testing.assert_close(fused_partpool_project(x, w, v, v),
                                fused_partpool_project_plain(x, w, v, v))
+    wq = torch.ones((8, 3, 3, 16), dtype=torch.int8)
+    torch.testing.assert_close(
+        conv_s8(x, wq, v, v, 1, 1, True, 2.0),
+        conv_s8_plain(x, wq, v, v, 1, 1, True, 2.0), rtol=0, atol=0)
     assert kernels.launch_counts() == {
         "distmat": 0, "partpool": 0, "mm_affine": 0, "mm_stats": 0,
         "mm_bn_da": 0, "mm_bn_dw": 0, "reduce3": 0, "bn3_apply": 0,
-        "conv2_bwd": 0, "bn1_apply": 0, "scale_bf16": 0, "bn_mm": 0}
+        "conv2_bwd": 0, "bn1_apply": 0, "scale_bf16": 0, "bn_mm": 0,
+        "conv_s8": 0}
 
 
 def test_wrappers_check_shapes_and_dtypes():

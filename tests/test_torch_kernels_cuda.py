@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from ieee_tpu_torch.ops import kernels
 from ieee_tpu_torch.ops.kernels import block_bwd as bb
+from ieee_tpu_torch.ops.kernels.conv_s8 import conv_s8, conv_s8_plain
 from ieee_tpu_torch.ops.kernels.distmat import euclidean_sq, euclidean_sq_plain
 from ieee_tpu_torch.ops.kernels.matmul_bn import (
     dy_plain,
@@ -687,3 +688,81 @@ def test_mbarrier_wait_is_bounded_and_traps(cuda, tmp_path):
     seconds = float(out.split("launch failed after ")[1].split(" s")[0])
     print(f"bn_mm with a wrong byte count failed after {seconds} s")
     assert seconds < 30, out[-2000:]
+
+
+# conv_s8: the w8a8 implicit GEMM (csrc/conv_s8.cu: int8 gathered and
+# quantized on load, mma.sync s8 tiles, s32 sums) against its plain version
+# (the same integers through F.conv2d in float64, exact): the raw s32 sums
+# equal exactly, and the bf16 output is within one bf16 step of the plain
+# epilogue (both round the same f32 product and sum: equal in practice).
+# Shapes (x (B, H, W, C_in), C_out, K, stride, padding, x dtype): the stem
+# on the f32 image (C_in 3, K = 147 padded in the kernel), ResNet-50's 3x3
+# at stride 1 and 2 and 1x1 at stride 1 and 2, layer4's 1x1 to 2048,
+# resnet18's basic 3x3 at stride 2; ragged M (odd batch and maps), C_out 8
+# and 72 (the 64-column tile partly used), C_in 48 and f32 on the vector
+# loader, a bf16 image on the scalar one
+CONV_S8_CASES = [
+    ((2, 256, 128, 3), 64, 7, 2, 3, torch.float32),
+    ((2, 64, 32, 64), 64, 3, 1, 1, torch.bfloat16),
+    ((2, 64, 32, 128), 128, 3, 2, 1, torch.bfloat16),
+    ((2, 64, 32, 256), 128, 1, 1, 0, torch.bfloat16),
+    ((2, 64, 32, 256), 512, 1, 2, 0, torch.bfloat16),
+    ((2, 16, 8, 512), 2048, 1, 1, 0, torch.bfloat16),
+    ((2, 64, 32, 64), 128, 3, 2, 1, torch.bfloat16),
+    ((3, 7, 5, 16), 8, 3, 1, 1, torch.bfloat16),
+    ((3, 9, 7, 3), 72, 7, 2, 3, torch.bfloat16),
+    ((1, 5, 3, 48), 136, 3, 2, 1, torch.float32),
+]
+
+
+def _conv_s8_operands(case, device, seed=0):
+    shape, cout, k, _, _, dtype = case
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.standard_normal(shape).astype(np.float32) * 2.0,
+                     device=device).to(dtype)
+    wq = torch.tensor(rng.integers(-127, 128, (cout, k, k, shape[-1]),
+                                   dtype=np.int8), device=device)
+    scale = torch.tensor(rng.uniform(1e-4, 1e-3, cout).astype(np.float32),
+                         device=device)
+    bias = torch.tensor(rng.standard_normal(cout).astype(np.float32),
+                        device=device)
+    # about the calibrated scale of this input (absmax / 127, inverted)
+    inv_sx = float(np.float32(127.0 / 7.0))
+    return x, wq, scale, bias, inv_sx
+
+
+@pytest.mark.parametrize("case", CONV_S8_CASES)
+@pytest.mark.parametrize("relu", [True, False])
+def test_conv_s8_kernel_matches_plain(cuda, case, relu):
+    _, _, _, stride, pad, _ = case
+    x, wq, scale, bias, inv_sx = _conv_s8_operands(case, cuda)
+    kernels.reset_launch_counts()
+    acc = conv_s8(x, wq, None, None, stride, pad, relu, inv_sx, raw=True)
+    got = conv_s8(x, wq, scale, bias, stride, pad, relu, inv_sx)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["conv_s8"] == 2
+    want_acc = conv_s8_plain(x, wq, None, None, stride, pad, relu, inv_sx,
+                             raw=True)
+    want = conv_s8_plain(x, wq, scale, bias, stride, pad, relu, inv_sx)
+    assert acc.dtype == torch.int32 and acc.shape == want_acc.shape
+    assert torch.equal(acc, want_acc)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    w32 = want.float()
+    ulp = torch.where(w32 == 0, torch.zeros_like(w32),
+                      2.0 ** (torch.floor(torch.log2(w32.abs())) - 7))
+    assert ((got.float() - w32).abs() <= ulp).all()
+    if relu:
+        assert (got.float() >= 0).all()
+    again = conv_s8(x, wq, scale, bias, stride, pad, relu, inv_sx)
+    assert torch.equal(got, again)
+
+
+def test_conv_s8_kernel_saturates_and_rounds_half_to_even(cuda):
+    # inputs at exact halves of the quantization step and beyond +-127
+    x = torch.tensor([0.5, 1.5, 2.5, -0.5, -2.5, 126.5, 200.0, -300.0]
+                     + [0.0] * 8, device=cuda).reshape(1, 1, 1, 16)
+    wq = torch.zeros((8, 1, 1, 16), dtype=torch.int8, device=cuda)
+    for i in range(8):
+        wq[i, 0, 0, i] = 1
+    acc = conv_s8(x, wq, None, None, 1, 0, False, 1.0, raw=True)
+    assert acc.flatten().tolist() == [0, 2, 2, 0, -2, 126, 127, -127]

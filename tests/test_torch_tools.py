@@ -19,7 +19,8 @@ from torch_threads import one_torch_thread  # noqa: F401
 
 TOOLS = ("bw_probe", "bw_probe2", "fusion_probe", "roofline_probe",
          "profile_train", "eval_bench", "eval_fwd_bench", "loader_bench",
-         "block_bench", "mm_bench", "kernel_bench")
+         "block_bench", "mm_bench", "kernel_bench", "int8_probe",
+         "int8_e2e_eval")
 
 
 def _tool(name):
@@ -190,11 +191,14 @@ def test_eval_fwd_bench(capsys):
                                       width=32, backbone_layers=(1, 1, 1, 1),
                                       iters=1)
     out = capsys.readouterr().out
-    assert "plain:" in out and "fused:" in out
-    assert "int8 PTQ: not ported yet (ROADMAP A.7)" in out
+    assert "plain:" in out and "fused:" in out and "int8 PTQ:" in out
+    assert "int8 vs plain feature cosine: min" in out
     # the folded head against the plain forward on the same weights
     # (bf16 trunks; 5.7e-3 measured at this size)
     assert res["rel_dev"] < 2e-2
+    # the w8a8 path against the plain forward: the JAX suite's bar for the
+    # IEEE int8 step (tests/test_int8_eval.py:107)
+    assert res["int8_cos_min"] > 0.97
 
 
 def test_loader_bench_main(capsys):
@@ -233,3 +237,34 @@ def test_mm_bench(capsys):
     assert out.count("ms per call queued") == 4
     assert "mm_stats per train step (33 sites), queued:" in out
     assert "per trunk (7 sites):" in out
+
+
+def test_int8_probe(capsys):
+    res = _tool("int8_probe").probe("cpu", batch=1, height=64, width=32,
+                                    iters=1, layers=(1, 1, 1, 1))
+    out = capsys.readouterr().out
+    # one line per distinct site of the cut trunk (the stem on the f32
+    # image, layer1-4's 1x1 and 3x3 sites), then the trunk's sums
+    lines = [line for line in out.splitlines() if line.startswith("site ")]
+    assert len(lines) == len(res) - 1 == 16
+    assert lines[0].startswith("site 1x64x32 3->64 k7 s2 float32 (x1): "
+                               "conv_s8 ")
+    assert "trunk (17 sites, batch 1): conv_s8" in out
+    one = [v for k, v in res.items() if k != "trunk" and k[5] == 1]
+    assert one and all(v["int_mm"] is not None for v in one)
+    assert all(math.isfinite(v["conv_s8"]) and v["bound_by"] in (
+        "bytes", "operations") for k, v in res.items() if k != "trunk")
+
+
+def test_int8_e2e_eval(capsys, tmp_path):
+    out = tmp_path / "INT8_EVAL.json"
+    art = _tool("int8_e2e_eval").run(
+        "cpu", pids=8, imgs_per_pid=2, batch=8, fwd_iters=1, out=str(out),
+        height=32, width=16, backbone_layers=(1, 1, 1, 1), workers=0)
+    assert out.is_file()
+    assert not art["bf16"]["int8_path"] and art["int8"]["int8_path"]
+    for tag in ("bf16", "int8"):
+        assert 0.0 <= art[tag]["mAP"] <= 1.0
+        assert math.isfinite(art[tag]["fwd_ms_per_batch"])
+    assert art["protocol"]["init_from"] == "RANDOM INIT (mAP near chance)"
+    assert '"mAP_delta"' in capsys.readouterr().out
