@@ -93,8 +93,10 @@ Phases (any failure raises and exits non-zero):
    partpool and no mm_affine at its default, both with ``--fused``,
    ``block_bench`` the three block product kernels, ``mm_bench`` the
    four 1x1 kernels, ``kernel_bench`` the distmat, ``scale_bf16``,
-   ``reduce3`` and ``partpool`` (per call, queued and device times). They
-   print the bandwidth and matmul rates the card reaches.
+   ``reduce3`` and ``partpool`` (per call, queued and device times),
+   ``rerank_bench`` (``--reps 1``, Market-1501 scale) the distmat,
+   ``jaccard_minsum`` and ``gnn_propagate``. They print the bandwidth and
+   matmul rates the card reaches.
 9. Ablation train: the ablation configs through the CLI at 256x128 and
    full depth with ``cuda.fused_1x1 True``, on ``synthetic_mm`` cut to 8
    ids x 4 images (4 steps of batch 8 an epoch), random weights. Counts
@@ -157,6 +159,27 @@ Phases (any failure raises and exits non-zero):
    53 ``conv_s8`` launches, the cosine printed. (d) ``int8_probe`` and
    ``int8_e2e_eval`` at small iteration counts, each launching
    ``conv_s8``.
+12. Re-ranking. (a) The headline config's eval through the CLI as in
+   phase 3 (no fused flag) with ``test.rerank True``, counts set to 0 just
+   before and read just after: 3 ``distmat`` and 1 ``jaccard_minsum``
+   launches and no other kernel, the device path taken (n = 48 > k1 + 1),
+   and the re-ranked distmat within rtol 1e-4, atol 1e-5 of the numpy
+   oracle on the same distmats pulled to the host. (b) k-reciprocal
+   re-ranking at Market-1501 scale (3368 x 15913) on seeded 2304-d
+   features clustered by 750 ids: f32 and bf16 min-sum timed (host clock
+   ending in a sync), one ``jaccard_minsum`` launch a call, the peak memory
+   above the distmats, mAP and rank-1 before and after, a profile of one
+   call; ``jaccard_minsum`` on that call's membership vectors against its
+   plain version (1e-5; bf16 on 256 query rows), twice bit for bit, with
+   the kernel's and the plain version's times beside the bound (the bytes,
+   and the dense form's (min, add) pairs at 16.75e12 a second). (c) GNN
+   re-ranking at Market-1501 scale (k1 26, k2 7, 512-d): the GNN CLI
+   (``tools/gnn_rerank_cli``) on a pickle of seeded features, counts set to
+   0 just before and read just after: 2 ``gnn_propagate`` launches and no
+   other kernel, each row of the ranking a permutation; both propagation
+   forms timed, a profile of one call; ``gnn_propagate`` at the call's
+   shape against its plain version (1e-6), twice bit for bit, with its
+   times beside the bound.
 
 Each phase prints its seconds, and the run its total. The line before the
 last is the JSON list of kernels; the last line is ``{"ok": true,
@@ -206,6 +229,11 @@ KERNELS = {
     # no Pallas kernel: the JAX int8 path's s8 conv is XLA's (_conv_nhwc)
     "conv_s8": ("ieee_tpu_torch/csrc/conv_s8.cu",
                 "ieee_tpu/models/int8_eval.py:122"),
+    # no Pallas kernels: XLA runs the JAX re-rankers' min-sum and gather-sum
+    "jaccard_minsum": ("ieee_tpu_torch/csrc/rerank.cu",
+                       "ieee_tpu/ops/rerank_device.py:109"),
+    "gnn_propagate": ("ieee_tpu_torch/csrc/rerank.cu",
+                      "ieee_tpu/ops/gnn_rerank.py:98"),
 }
 EVAL_KERNELS = ("distmat", "partpool", "mm_affine")
 TRAIN_KERNELS = ("mm_stats", "mm_bn_da", "mm_bn_dw")
@@ -236,7 +264,9 @@ TOOLS = (("bw_probe", [], ("scale_bf16",), ()),
          ("mm_bench", ["--iters", "3"], ("mm_stats", "mm_affine",
                                         "mm_bn_da", "mm_bn_dw"), ()),
          ("kernel_bench", ["--iters", "10"], ("distmat", "scale_bf16",
-                                              "reduce3", "partpool"), ()))
+                                              "reduce3", "partpool"), ()),
+         ("rerank_bench", ["--reps", "1"], ("distmat", "jaccard_minsum",
+                                            "gnn_propagate"), ()))
 # blocks on the block path per train step (10 per trunk, 3 trunks)
 BLOCKS_PER_STEP = 30
 # phase 11: conv sites of one ResNet-50 trunk, and the two int8 tools with
@@ -248,6 +278,11 @@ INT8_TOOLS = (("int8_probe", ["--iters", "3"], ("conv_s8",), ()),
                                  os.path.join(ROOT, "log", "chip_smoke_int8",
                                               "INT8_EVAL.json")],
                ("conv_s8", "partpool", "distmat"), ()))
+# phase 12: Market-1501's test split (query, gallery, test ids) and the
+# re-rankers' settings (the engine's k-reciprocal defaults, GNN's)
+MARKET_Q, MARKET_G, MARKET_IDS = 3368, 15913, 750
+RERANK_K1, RERANK_K2 = 20, 6
+GNN_K1, GNN_K2 = 26, 7
 # phase 9: the ablation configs, and the short synthetic set they train on
 # (8 ids x 4 images: 4 steps of the configs' batch 8 an epoch)
 ABLATION = {name: os.path.join(ROOT, "configs", f"rgbnt_{name}_softmax.yaml")
@@ -300,7 +335,7 @@ def die(msg: str, code: int = 2):
 
 # the timing helpers of the checkout's package
 # (ieee_tpu_torch/tools/_timing.py), bound by main() once it has found it
-card_line = median_ms = bound_ms = short_name = None
+card_line = median_ms = bound_ms = short_name = kernel_ms = None
 
 
 def demangle(name: str) -> str:
@@ -1951,6 +1986,324 @@ def int8_feature_extractor():
     torch.cuda.empty_cache()
 
 
+def _market_split(dim, seed, noise):
+    """Seeded Market-1501-sized query and gallery features (``dim``-d, each
+    its id's centre plus gaussian noise of std ``noise``, 750 ids, so that
+    neighbour sets follow identities as on trained features), with their
+    ids and cameras, on the card."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    centres = torch.randn((MARKET_IDS, dim), generator=gen, device="cuda")
+    out = []
+    for num in (MARKET_Q, MARKET_G):
+        ids = torch.randint(0, MARKET_IDS, (num,), generator=gen,
+                            device="cuda")
+        out.append((centres[ids] + noise * torch.randn(
+            (num, dim), generator=gen, device="cuda"), ids,
+            torch.randint(0, 6, (num,), generator=gen, device="cuda")))
+    (qf, q_ids, q_cams), (gf, g_ids, g_cams) = out
+    return qf, gf, q_ids, g_ids, q_cams, g_cams
+
+
+def rerank_cli_eval():
+    """Phase 12 (a): the headline config's eval through the CLI with
+    ``test.rerank True``; returns the launch counts of its run."""
+    import numpy as np
+    import torch
+
+    from ieee_tpu_torch import main_multimodal
+    from ieee_tpu_torch.engine import engine as engine_mod
+    from ieee_tpu_torch.ops import kernels
+    from ieee_tpu_torch.ops.rerank import re_ranking
+
+    # the re-rank's operands and result, seen at the name the engine calls
+    seen = []
+    real = engine_mod.re_ranking_device
+
+    def spy(qg, qq, gg, **kw):
+        out = real(qg, qq, gg, **kw)
+        seen.append([t.cpu().numpy() for t in (qg, qq, gg, out)])
+        return out
+
+    engine_mod.re_ranking_device = spy
+    try:
+        kernels.reset_launch_counts()
+        rank1 = main_multimodal.main([
+            "--config-file", CONFIG, "--device", "cuda",
+            "model.pretrained", "False",
+            "data.sources", "['synthetic_mm']",
+            "data.targets", "['synthetic_mm']",
+            "data.height", "256", "data.width", "128",
+            "data.save_dir", os.path.join(ROOT, "log", "chip_smoke_rerank"),
+            "test.evaluate", "True", "test.batch_size", "100",
+            "test.rerank", "True"])
+        torch.cuda.synchronize()
+    finally:
+        engine_mod.re_ranking_device = real
+    counts = kernels.launch_counts()
+    if len(seen) != 1:
+        raise AssertionError(f"{len(seen)} re-ranks in one evaluation")
+    qg, qq, gg, out = seen[0]
+    n = qq.shape[0] + gg.shape[0]
+    want = re_ranking(qg, qq, gg)
+    err = float(np.abs(out - want).max())
+    ok = np.allclose(out, want, rtol=1e-4, atol=1e-5)
+    print(f"re-ranked CLI eval ({qq.shape[0]} query x {gg.shape[0]} gallery, "
+          f"n {n} > k1 + 1 = {RERANK_K1 + 1}): rank1 {rank1:.4f}, launches "
+          f"{ {k: v for k, v in counts.items() if v} }; against the numpy "
+          f"oracle on the same distmats: max_abs_err {err:.3e} (rtol 1e-4, "
+          f"atol 1e-5)")
+    if not 0.0 <= rank1 <= 1.0 or out.shape != qg.shape:
+        raise AssertionError(f"re-ranked eval: rank-1 {rank1}, "
+                             f"{out.shape} vs {qg.shape}")
+    if n <= RERANK_K1 + 1 or counts["distmat"] != 3 or (
+            counts["jaccard_minsum"] != 1):
+        raise AssertionError(f"re-ranked eval off the device path: n {n}, "
+                             f"launches {counts}")
+    if any(v for k, v in counts.items()
+           if k not in ("distmat", "jaccard_minsum")):
+        raise AssertionError(f"re-ranked eval launched other kernels: "
+                             f"{counts}")
+    if not ok:
+        raise AssertionError(f"device re-rank disagrees with the oracle: "
+                             f"{err}")
+    return counts
+
+
+def rerank_market(results):
+    """Phase 12 (b): k-reciprocal re-ranking at Market-1501 scale on seeded
+    2304-d features: the device re-rank timed, f32 and bf16, with its peak
+    memory; ``jaccard_minsum`` against its plain version on the call's
+    membership vectors, with the kernel's, the plain version's and the
+    bound's times."""
+    import torch
+
+    from ieee_tpu_torch.ops import kernels
+    from ieee_tpu_torch.ops.distance import compute_distance_matrix
+    from ieee_tpu_torch.ops.kernels.rerank import (
+        jaccard_minsum, jaccard_minsum_plain)
+    from ieee_tpu_torch.ops.ranking import _device_rank
+    from ieee_tpu_torch.ops.rerank_device import (
+        _membership, re_ranking_device)
+
+    qf, gf, q_ids, g_ids, q_cams, g_cams = _market_split(2304, 31, 4.0)
+    qg = compute_distance_matrix(qf, gf)
+    qq = compute_distance_matrix(qf, qf)
+    gg = compute_distance_matrix(gf, gf)
+    del qf, gf
+    torch.cuda.synchronize()
+    times = {}
+    for bf16 in (False, True):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = re_ranking_device(qg, qq, gg, RERANK_K1, RERANK_K2,
+                                minsum_bf16=bf16)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        if kernels.launch_counts()["jaccard_minsum"] != 1:
+            raise AssertionError("re_ranking_device: not one jaccard_minsum "
+                                 "launch")
+        t0 = time.perf_counter()
+        for _ in range(2):
+            out = re_ranking_device(qg, qq, gg, RERANK_K1, RERANK_K2,
+                                    minsum_bf16=bf16)
+        torch.cuda.synchronize()
+        times[bf16] = (time.perf_counter() - t0) / 2
+        if not torch.isfinite(out).all() or out.shape != qg.shape:
+            raise AssertionError(f"re-ranked distmat bad: {out.shape}")
+        ranks = [_device_rank(d, q_ids, g_ids, q_cams, g_cams, 50)
+                 for d in (qg, out)]
+        print(f"k-reciprocal at Market scale ({MARKET_Q} x {MARKET_G}, "
+              f"2304-d, k1 {RERANK_K1} k2 {RERANK_K2}, "
+              f"{'bf16' if bf16 else 'f32'} min-sum): {times[bf16]:.4f} s a "
+              f"call (first {first:.4f} s), peak memory {peak:.2f} GiB above "
+              f"the distmats; mAP {float(ranks[0][1]):.4f} -> "
+              f"{float(ranks[1][1]):.4f}, rank-1 {float(ranks[0][0][0]):.4f} "
+              f"-> {float(ranks[1][0][0]):.4f}; {card_line()}")
+        del out
+    print("  profiler, one f32 re-rank call (device ms by kernel):")
+    for key, ms in kernel_ms(lambda: re_ranking_device(
+            qg, qq, gg, RERANK_K1, RERANK_K2), calls=1)[:8]:
+        print(f"  {ms:9.3f} ms {short_name(key)[:70]}")
+
+    # the kernel alone on this call's membership vectors
+    V, _ = _membership(qg, qq, gg, RERANK_K1, RERANK_K2)
+    del qg, qq, gg
+    vq, vg = V[:MARKET_Q], V[MARKET_Q:]
+    n = V.shape[1]
+    got = jaccard_minsum(vq, vg)
+    again = jaccard_minsum(vq, vg)
+    t0 = time.perf_counter()
+    want = jaccard_minsum_plain(vq, vg)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(got, again):
+        raise AssertionError("jaccard_minsum: two runs differ")
+    err = (got - want).abs().max().item()
+    del want, again
+    ms = median_ms(lambda: jaccard_minsum(vq, vg), iters=3, warmup=1)
+    # work: the dense form's (min, add) pairs, and the pairs this V needs
+    # (both operands non-zero); bytes: V read once, the output written once
+    dense = float(MARKET_Q) * MARKET_G * n
+    nz = (V != 0)
+    sparse = float((nz[:MARKET_Q].sum(0).double()
+                    * nz[MARKET_Q:].sum(0).double()).sum())
+    del nz
+    nbytes = 4.0 * (MARKET_Q + MARKET_G) * n + 4.0 * MARKET_Q * MARKET_G
+    bound = bound_ms(sparse, nbytes, "minadd")
+    dense_bound = bound_ms(dense, nbytes, "minadd")
+    print(f"kernel jaccard_minsum {[MARKET_Q, MARKET_G, n]} f32: "
+          f"max_abs_err {err:.3e} (tol 1e-5) kernel {ms:.4f} ms plain "
+          f"{plain_ms:.4f} ms (one call) library none bound {bound[0]:.4f} "
+          f"ms ({bound[1]}; the data's {sparse:.4e} non-zero pairs) dense "
+          f"form's bound {dense_bound[0]:.4f} ms ({dense_bound[1]}, "
+          f"{dense:.4e} pairs at 16.75e12 a second)")
+    if err > 1e-5:
+        raise AssertionError(f"jaccard_minsum disagrees with its plain "
+                             f"version: {err}")
+    results["jaccard_minsum"] = {"max_abs_err": err, "cases": [
+        {"shape": [MARKET_Q, MARKET_G, n], "ms": ms, "plain_ms": plain_ms,
+         "library_ms": None, "bound_ms": bound[0], "bound_by": bound[1],
+         "max_abs_err": err, "weight": 1}]}
+    del got
+    # bf16 staging on the first 256 query rows
+    Vb = V.to(torch.bfloat16)
+    del V, vq, vg
+    got = jaccard_minsum(Vb[:256], Vb[MARKET_Q:])
+    want = jaccard_minsum_plain(Vb[:256], Vb[MARKET_Q:])
+    err_b = (got - want).abs().max().item()
+    ms_b = median_ms(lambda: jaccard_minsum(Vb[:MARKET_Q], Vb[MARKET_Q:]),
+                     iters=3, warmup=1)
+    print(f"kernel jaccard_minsum bf16 V: max_abs_err {err_b:.3e} on 256 "
+          f"query rows (tol 1e-5), kernel {ms_b:.4f} ms at "
+          f"{[MARKET_Q, MARKET_G, n]}")
+    if err_b > 1e-5:
+        raise AssertionError(f"jaccard_minsum bf16 disagrees with its plain "
+                             f"version: {err_b}")
+    results["jaccard_minsum"]["max_abs_err"] = max(err, err_b)
+    del Vb, got, want
+    torch.cuda.empty_cache()
+    print(f"re-rank times: f32 {times[False]:.4f} s, bf16 {times[True]:.4f} s")
+
+
+def gnn_market(results):
+    """Phase 12 (c): GNN re-ranking at Market-1501 scale (k1 26, k2 7,
+    512-d): the GNN CLI on a pickle of seeded features (launch counts set
+    to 0 just before, read just after: 2 ``gnn_propagate``), both
+    propagation forms timed, and ``gnn_propagate`` against its plain
+    version at the call's shape; returns the CLI run's launch counts."""
+    import pickle
+    import shutil
+
+    import torch
+
+    from ieee_tpu_torch.ops import kernels
+    from ieee_tpu_torch.ops.gnn_rerank import _gnn_graph, _gnn_rerank_scores
+    from ieee_tpu_torch.ops.kernels.rerank import (
+        gnn_propagate, gnn_propagate_plain)
+    from ieee_tpu_torch.tools import gnn_rerank_cli
+
+    qf, gf, q_ids, g_ids, q_cams, g_cams = _market_split(512, 41, 3.0)
+    save_dir = os.path.join(ROOT, "log", "chip_smoke_gnn")
+    os.makedirs(save_dir, exist_ok=True)
+    path = os.path.join(save_dir, "features.pkl")
+    with open(path, "wb") as f:
+        pickle.dump({"query_f": qf.cpu().numpy(), "gallery_f":
+                     gf.cpu().numpy(), "query_pid": q_ids.cpu().numpy(),
+                     "gallery_pid": g_ids.cpu().numpy(), "query_cam":
+                     q_cams.cpu().numpy(), "gallery_cam":
+                     g_cams.cpu().numpy()}, f)
+    kernels.reset_launch_counts()
+    res = gnn_rerank_cli.main(["--data", path, "--device", "cuda", "--k1",
+                               str(GNN_K1), "--k2", str(GNN_K2)])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    shutil.rmtree(save_dir, ignore_errors=True)
+    print(f"GNN CLI at Market scale: {res['ms']:.1f} ms (first call), mAP "
+          f"{res['mAP']:.4f}, launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    if counts["gnn_propagate"] != 2 or any(
+            v for k, v in counts.items() if k != "gnn_propagate"):
+        raise AssertionError(f"GNN CLI: not two gnn_propagate launches: "
+                             f"{counts}")
+    L = res["ranking"]
+    if L.shape != (MARKET_Q, MARKET_G) or not bool((L.sort(1).values == (
+            torch.arange(MARKET_G, device="cuda"))).all()):
+        raise AssertionError(f"GNN ranking bad: {tuple(L.shape)}")
+    del res, L
+
+    qn = qf / qf.norm(dim=1, keepdim=True)
+    gn = gf / gf.norm(dim=1, keepdim=True)
+    for track in (False, True):
+        kernels.reset_launch_counts()
+        ms = median_ms(lambda: _gnn_rerank_scores(qn, gn, GNN_K1, GNN_K2,
+                                                  track), iters=2, warmup=1)
+        if kernels.launch_counts()["gnn_propagate"] != 2 * 3:
+            raise AssertionError("GNN scores: not two gnn_propagate "
+                                 "launches a call")
+        print(f"GNN scores at Market scale "
+              f"[{'transpose-free' if track else 'A+A.T'}]: {ms:.3f} ms a "
+              f"call")
+    print("  profiler, one A+A.T GNN scores call (device ms by kernel):")
+    for key, ms in kernel_ms(lambda: _gnn_rerank_scores(
+            qn, gn, GNN_K1, GNN_K2), calls=1)[:8]:
+        print(f"  {ms:9.3f} ms {short_name(key)[:70]}")
+
+    A, S, rank = _gnn_graph(qn, gn, GNN_K1)
+    C = A + A.T
+    del A
+    idx = rank[:, :GNN_K2].contiguous()
+    vals = S[:, :GNN_K2].contiguous()
+    n = C.shape[0]
+    got = gnn_propagate(C, idx, vals)
+    again = gnn_propagate(C, idx, vals)
+    want = gnn_propagate_plain(C, idx, vals)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError("gnn_propagate: two runs differ")
+    err = (got - want).abs().max().item()
+    del got, again, want
+    ms = median_ms(lambda: gnn_propagate(C, idx, vals), iters=10)
+    plain_ms = median_ms(lambda: gnn_propagate_plain(C, idx, vals), iters=3,
+                         warmup=1)
+    # bytes: the rows of C some output row gathers, each read once, and the
+    # output written once; operations: k2 multiply-adds an element
+    rows = idx.unique().numel()
+    nbytes = 4.0 * rows * n + 4.0 * n * n + 12.0 * idx.numel()
+    bound = bound_ms(2.0 * GNN_K2 * n * n, nbytes, "f32")
+    every = bound_ms(0.0, 4.0 * (GNN_K2 + 1) * n * n, "f32")
+    print(f"kernel gnn_propagate [{n}, {n}, k2 {GNN_K2}]: max_abs_err "
+          f"{err:.3e} (tol 1e-6) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+          f"library none bound {bound[0]:.4f} ms ({bound[1]}; {rows} distinct "
+          f"rows gathered) every gathered row from HBM {every[0]:.4f} ms")
+    if err > 1e-6:
+        raise AssertionError(f"gnn_propagate disagrees with its plain "
+                             f"version: {err}")
+    results["gnn_propagate"] = {"max_abs_err": err, "cases": [
+        {"shape": [n, n, GNN_K2], "ms": ms, "plain_ms": plain_ms,
+         "library_ms": None, "bound_ms": bound[0], "bound_by": bound[1],
+         "max_abs_err": err, "weight": 1}]}
+    del C, idx, vals, S, rank
+    torch.cuda.empty_cache()
+    return counts
+
+
+def rerank_phase(results):
+    """Phase 12: re-ranking; returns the launch counts of the main paths'
+    runs (the re-ranked CLI eval's jaccard_minsum, the GNN CLI's
+    gnn_propagate)."""
+    counts = rerank_cli_eval()
+    rerank_market(results)
+    gnn_counts = gnn_market(results)
+    return {"jaccard_minsum": counts["jaccard_minsum"],
+            "gnn_propagate": gnn_counts["gnn_propagate"]}
+
+
 def run_tools(tools=TOOLS):
     """Phase 8 (and 11's int8 tools): each measurement tool's ``main()`` on
     the card; returns the launch counts of each run, by the tool's name and
@@ -2007,10 +2360,10 @@ def main():
             ieee_tpu_torch.__file__).startswith(ROOT + os.sep):
         die(f"ieee_tpu_torch not found next to {__file__}: run from the root "
             "of a checkout")
-    global card_line, median_ms, bound_ms, short_name
+    global card_line, median_ms, bound_ms, short_name, kernel_ms
     from ieee_tpu_torch.ops import _build
-    from ieee_tpu_torch.tools._timing import (bound_ms, card_line, median_ms,
-                                              short_name)
+    from ieee_tpu_torch.tools._timing import (bound_ms, card_line, kernel_ms,
+                                              median_ms, short_name)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2085,6 +2438,9 @@ def main():
     int8_feature_extractor()
     run_tools(INT8_TOOLS)
     print(f"phase int8 eval: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rerank_counts = rerank_phase(results)
+    print(f"phase re-ranking: {time.perf_counter() - t0:.1f} s")
 
     # each kernel's reported numbers: the weighted sum of its cases, where
     # the weight is how often the case runs in the reported unit: distmat
@@ -2098,10 +2454,14 @@ def main():
     # block kernels; the probe kernels' from their tools' runs (phase 8),
     # and mm_stats adds fusion_probe's calls to the train path's; conv_s8
     # over the 53 sites of one trunk at batch 100, its launches from the
-    # int8 engine eval (phase 11)
+    # int8 engine eval (phase 11); jaccard_minsum and gnn_propagate over one
+    # call at Market-1501 scale, their launches from the re-ranked CLI eval
+    # and the GNN CLI's run (phase 12)
     launches = {name: (block_counts if name in BLOCK_KERNELS
                        else counts)[name] for name in KERNELS}
     launches["conv_s8"] = int8_counts["conv_s8"]
+    for name in ("jaccard_minsum", "gnn_propagate"):
+        launches[name] = rerank_counts[name]
     launches["scale_bf16"] = tool_counts["bw_probe"]["scale_bf16"]
     for name in ("mm_stats", "bn_mm"):
         launches[name] += tool_counts["fusion_probe"][name]

@@ -167,6 +167,11 @@ def get_default_config() -> ConfigNode:
     # kernels (ops/kernels/block_bwd.py). Off by default, as in the JAX
     # package, until measured times say otherwise
     cfg.cuda.block_megakernel = False
+    # opt-in bf16 staging of the membership vectors for the device
+    # k-reciprocal re-rank's jaccard_minsum kernel (ops/rerank_device.py),
+    # summed in f32: ~1e-3 relative off the f32 oracle, as the JAX
+    # package's cfg.tpu.rerank_bf16
+    cfg.cuda.rerank_bf16 = False
     cfg.cuda.prefetch = 2  # host loader prefetch depth (data/loader.py)
 
     return cfg

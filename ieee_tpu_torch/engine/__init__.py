@@ -23,6 +23,7 @@ def build_engine(cfg, datamanager, model, optimizer=None, scheduler=None,
     name = cfg.loss.name
     common = dict(device=device, fused_eval=bool(cfg.cuda.fused_eval),
                   int8_eval=bool(cfg.cuda.int8_eval),
+                  rerank_bf16=bool(cfg.cuda.rerank_bf16),
                   seed=cfg.train.seed,
                   accum_steps=int(cfg.train.accum_steps),
                   label_smooth=cfg.loss.softmax.label_smooth)

@@ -27,8 +27,11 @@ arrays, go to the device, and are transformed there.
   saves a reference-format checkpoint with the optimizer's state at each
   evaluation, or every ``save_freq`` epochs (``utils/checkpoint.py``).
 - Evaluation: features, the distmat and the ranking stay on the device
-  until the metrics are read. ``test`` returns the rank-1 of the LAST
-  target dataset, the reference's quirk (``engine.py:319-337``).
+  until the metrics are read. ``test.rerank`` re-ranks the distmat
+  (k-reciprocal, k1 20, k2 6, lambda 0.3): on the card through
+  ``re_ranking_device``, on a CPU engine through the numpy oracle, as the
+  JAX engine off the TPU. ``test`` returns the rank-1 of the LAST target
+  dataset, the reference's quirk (``engine.py:319-337``).
 """
 
 from __future__ import annotations
@@ -48,7 +51,8 @@ from ..models.int8_eval import (
     build_int8_reid_eval_step,
     supports_int8_eval,
 )
-from ..ops import compute_distance_matrix, evaluate_rank
+from ..ops import (compute_distance_matrix, evaluate_rank, re_ranking,
+                   re_ranking_device)
 from ..optim import set_lr
 from ..utils.avgmeter import AverageMeter, MetricMeter
 from ..utils.checkpoint import resume_from_checkpoint, save_checkpoint
@@ -105,7 +109,8 @@ class Engine:
 
     def __init__(self, datamanager, model, optimizer=None, scheduler=None,
                  device="cuda", fused_eval: bool = False, seed: int = 1,
-                 accum_steps: int = 1, int8_eval: bool = False):
+                 accum_steps: int = 1, int8_eval: bool = False,
+                 rerank_bf16: bool = False):
         if int(accum_steps) < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         self.accum_steps = int(accum_steps)
@@ -117,6 +122,7 @@ class Engine:
         self.device = torch.device(device)
         self.fused_eval = fused_eval
         self.int8_eval = int8_eval
+        self.rerank_bf16 = rerank_bf16
         self.train_loader = datamanager.train_loader
         self.test_loader = datamanager.test_loader
         self.generator = torch.Generator(device=self.device).manual_seed(
@@ -397,9 +403,8 @@ class Engine:
                   save_dir="", use_metric_cuhk03=False, ranks=(1, 5, 10, 20),
                   rerank=False):
         """-> (cmc numpy, mAP): the full CMC curve and the mAP."""
-        if rerank or visrank:
-            raise NotImplementedError(
-                "test.rerank and test.visrank are not ported yet")
+        if visrank:
+            raise NotImplementedError("test.visrank is not ported yet")
         print("Extracting features from query set ...")
         qf, q_pids, q_camids = self._feature_extraction(query_loader)
         print(f"Done, obtained {qf.shape[0]}-by-{qf.shape[1]} matrix")
@@ -414,6 +419,20 @@ class Engine:
 
         print(f"Computing distance matrix with metric={dist_metric} ...")
         distmat = compute_distance_matrix(qf, gf, dist_metric)
+
+        if rerank:
+            print("Applying person re-ranking ...")
+            distmat_qq = compute_distance_matrix(qf, qf, dist_metric)
+            distmat_gg = compute_distance_matrix(gf, gf, dist_metric)
+            if self.device.type == "cuda":
+                # on the card: the masked-matrix re-rank, its min-sum on the
+                # jaccard_minsum kernel (ops/rerank_device.py)
+                distmat = re_ranking_device(distmat, distmat_qq, distmat_gg,
+                                            minsum_bf16=self.rerank_bf16)
+            else:
+                # the numpy oracle, as the JAX engine off the TPU
+                distmat = re_ranking(distmat.numpy(), distmat_qq.numpy(),
+                                     distmat_gg.numpy())
 
         print("Computing CMC and mAP ...")
         cmc, mAP = evaluate_rank(distmat, q_pids, g_pids, q_camids, g_camids,

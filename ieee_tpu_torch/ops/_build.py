@@ -58,6 +58,8 @@ _SIGNATURES = {
     "ieee_scale_bf16": [_P, _P, _F, _I, _I, _I, _I, _P],
     "ieee_bn_mm_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
     "ieee_conv_s8": [_P, _I] + [_P] * 4 + [_I] * 11 + [_F, _I, _I, _I, _P],
+    "ieee_jaccard_minsum": [_P, _P, _P] + [_I] * 6 + [_P],
+    "ieee_gnn_propagate": [_P] * 4 + [_I] * 4 + [_P],
     "ieee_wait_report": [ctypes.c_char_p, _I],
 }
 

@@ -17,7 +17,8 @@ __all__ = ["KERNEL_NAMES", "LAUNCHES", "reset_launch_counts", "launch_counts"]
 #: set, then the hand kernels beyond it)
 KERNEL_NAMES = ("distmat", "partpool", "mm_affine", "mm_stats", "mm_bn_da",
                 "mm_bn_dw", "reduce3", "bn3_apply", "conv2_bwd", "bn1_apply",
-                "scale_bf16", "bn_mm", "conv_s8")
+                "scale_bf16", "bn_mm", "conv_s8", "jaccard_minsum",
+                "gnn_propagate")
 
 #: kernel name -> number of launches since the last reset
 LAUNCHES: Counter = Counter()

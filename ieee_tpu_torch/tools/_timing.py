@@ -22,9 +22,13 @@ __all__ = ["HBM_BPS", "PEAK", "parse_tool_args", "card_line",
            "short_name", "bound_ms"]
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, FLOP/s (int8:
-#: OP/s) by type
+#: OP/s) by type; "minadd": (min, add) pairs/s on the CUDA cores, a quarter
+#: of the f32 rate (the CUDA C programming guide's throughput table for
+#: compute capability 9.0: 128 f32 adds and 64 min/max an SM a clock, 4
+#: warp instructions issued an SM a clock: 64 pairs, at 132 SMs x 1.98 GHz)
 HBM_BPS = 3.35e12
-PEAK = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12, "int8": 1979e12}
+PEAK = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12, "int8": 1979e12,
+        "minadd": 67e12 / 4}
 
 
 def parse_tool_args(parser: argparse.ArgumentParser, argv=None):

@@ -91,7 +91,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "ieee_tpu_torch.ops.kernels.conv_s8, "
             "ieee_tpu_torch.utils.feature_extractor, "
             "ieee_tpu_torch.tools.int8_probe, "
-            "ieee_tpu_torch.tools.int8_e2e_eval; "
+            "ieee_tpu_torch.tools.int8_e2e_eval, "
+            "ieee_tpu_torch.ops.rerank, ieee_tpu_torch.ops.rerank_device, "
+            "ieee_tpu_torch.ops.gnn_rerank, "
+            "ieee_tpu_torch.ops.kernels.rerank, "
+            "ieee_tpu_torch.tools.rerank_bench, "
+            "ieee_tpu_torch.tools.gnn_rerank_cli; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'ieee_tpu.')) or m == 'ieee_tpu']; "
             "assert not bad, bad")

@@ -35,6 +35,12 @@ from ieee_tpu_torch.ops.kernels.partpool import (
     fused_partpool_project_plain,
     pool_matrix,
 )
+from ieee_tpu_torch.ops.kernels.rerank import (
+    gnn_propagate,
+    gnn_propagate_plain,
+    jaccard_minsum,
+    jaccard_minsum_plain,
+)
 
 from test_pallas_kernels import _interpret_distmat
 from torch_threads import one_torch_thread  # noqa: F401
@@ -246,11 +252,18 @@ def test_wrappers_take_the_plain_version_on_cpu_and_count_nothing():
     torch.testing.assert_close(
         conv_s8(x, wq, v, v, 1, 1, True, 2.0),
         conv_s8_plain(x, wq, v, v, 1, 1, True, 2.0), rtol=0, atol=0)
+    vr = a.abs()
+    torch.testing.assert_close(jaccard_minsum(vr, vr),
+                               jaccard_minsum_plain(vr, vr), rtol=0, atol=0)
+    idx = torch.zeros((9, 2), dtype=torch.int64)
+    torch.testing.assert_close(gnn_propagate(vr, idx, vr[:, :2]),
+                               gnn_propagate_plain(vr, idx, vr[:, :2]),
+                               rtol=0, atol=0)
     assert kernels.launch_counts() == {
         "distmat": 0, "partpool": 0, "mm_affine": 0, "mm_stats": 0,
         "mm_bn_da": 0, "mm_bn_dw": 0, "reduce3": 0, "bn3_apply": 0,
         "conv2_bwd": 0, "bn1_apply": 0, "scale_bf16": 0, "bn_mm": 0,
-        "conv_s8": 0}
+        "conv_s8": 0, "jaccard_minsum": 0, "gnn_propagate": 0}
 
 
 def test_wrappers_check_shapes_and_dtypes():

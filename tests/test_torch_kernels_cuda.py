@@ -33,6 +33,8 @@ from ieee_tpu_torch.ops.kernels.partpool import (
     fused_partpool_project,
     fused_partpool_project_plain,
 )
+from ieee_tpu_torch.ops.gnn_rerank import _gnn_rerank_scores
+from ieee_tpu_torch.ops.kernels import rerank as kr
 from ieee_tpu_torch.ops.kernels.probes import (
     bn_mm,
     bn_mm_plain,
@@ -41,6 +43,8 @@ from ieee_tpu_torch.ops.kernels.probes import (
     scale_bf16,
     scale_bf16_plain,
 )
+from ieee_tpu_torch.ops.rerank import re_ranking
+from ieee_tpu_torch.ops.rerank_device import re_ranking_device
 
 
 @pytest.fixture
@@ -766,3 +770,185 @@ def test_conv_s8_kernel_saturates_and_rounds_half_to_even(cuda):
         wq[i, 0, 0, i] = 1
     acc = conv_s8(x, wq, None, None, 1, 0, False, 1.0, raw=True)
     assert acc.flatten().tolist() == [0, 2, 2, 0, -2, 126, 127, -127]
+
+
+# jaccard_minsum: the k-reciprocal min-sum (csrc/rerank.cu: 64 x 64 tiles of
+# f32 sums in registers, K in steps of 32 through shared memory) against
+# its plain version (the blocked broadcast-min-sum). Operands are rows of
+# membership-like vectors (non-negative, summing to 1, a third zeros) of
+# one matrix, K elements apart (rows start off 16 bytes when K is odd);
+# both sum f32 terms of at most 1 in different orders, so 1e-5 absolute on
+# the distances 1 - s / (2 - s). Shapes (m, n, K): q < 64, n off the
+# 64-wide tile, K off the 32-deep step, one whole tile, a single entry, and
+# the re-rank's own layout (query and gallery rows of one n x n matrix,
+# K = n)
+MINSUM_CASES = [(12, 48, 60), (3, 100, 129), (70, 130, 1000), (64, 64, 32),
+                (1, 1, 1), (129, 200, 329)]
+
+
+def _membership(rows, k, seed, device):
+    rng = np.random.default_rng(seed)
+    v = rng.random((rows, k)) * (rng.random((rows, k)) > 0.3)
+    v /= np.maximum(v.sum(1, keepdims=True), 1e-12)
+    return torch.tensor(v.astype(np.float32), device=device)
+
+
+@pytest.mark.parametrize("m,n,k", MINSUM_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_jaccard_minsum_kernel_matches_plain(cuda, m, n, k, dtype):
+    v = _membership(m + n, k, m + n + k, cuda).to(dtype)
+    vq, vg = v[:m], v[m:]
+    kernels.reset_launch_counts()
+    got = kr.jaccard_minsum(vq, vg)
+    again = kr.jaccard_minsum(vq, vg)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["jaccard_minsum"] == 2
+    want = kr.jaccard_minsum_plain(vq, vg)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    assert (got - want).abs().max().item() <= 1e-5
+    assert torch.equal(got, again)
+
+
+def test_jaccard_minsum_kernel_at_k_zero_and_rejects_layouts(cuda):
+    empty = torch.zeros((3, 0), device=cuda)
+    got = kr.jaccard_minsum(empty, torch.zeros((5, 0), device=cuda))
+    assert torch.equal(got, torch.ones((3, 5), device=cuda))
+    # rows further apart than K, starting off 16 bytes: as the plain version
+    v = _membership(6, 40, 0, cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        w = v.to(dtype)
+        got = kr.jaccard_minsum(w[:2, 1:38], w[2:, 1:38])
+        want = kr.jaccard_minsum_plain(w[:2, 1:38], w[2:, 1:38])
+        assert (got - want).abs().max().item() <= 1e-5
+    with pytest.raises(ValueError, match="unit column stride"):
+        kr.jaccard_minsum(v.T[:2], v.T[2:])
+    with pytest.raises(ValueError, match="overlap"):
+        kr.jaccard_minsum(v[:1].expand(3, 40), v)
+    with pytest.raises(TypeError):
+        kr.jaccard_minsum(v, v.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        kr.jaccard_minsum(v, v.cpu())
+
+
+# gnn_propagate: one block per output row (csrc/rerank.cu) against its plain
+# version (the k2-term gather-sum in j order, then the row's norm). The
+# unnormalized sums round alike (each product and sum rounded on its own,
+# in j order); the norms sum in other orders, so 1e-6 absolute on rows of
+# norm 1. C = A + A^T of a top-k1 adjacency, vals the squared similarities
+# of the k2 nearest; n off the 512-thread stride, k2 1 and 7 (below the
+# 8 loads in flight), 9 and 64 (past them); a C whose rows lie further
+# apart than its width
+PROPAGATE_CASES = [(50, 1), (129, 7), (1000, 7), (3001, 7), (700, 9),
+                   (600, 64)]
+
+
+def _propagate_operands(n, k2, device, seed=0, pad=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, 16)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    x = torch.tensor(x, device=device)
+    s, rank = torch.topk(x @ x.T, max(k2, 8), dim=1)
+    a = torch.zeros((n, n + pad), device=device)[:, :n]
+    a.scatter_add_(1, rank, torch.ones_like(s))
+    c = a + a.T
+    if pad:
+        c = torch.zeros((n, n + pad), device=device)[:, :n].copy_(c)
+    return c, rank[:, :k2].contiguous(), (s * s)[:, :k2].contiguous()
+
+
+@pytest.mark.parametrize("n,k2", PROPAGATE_CASES)
+def test_gnn_propagate_kernel_matches_plain(cuda, n, k2):
+    c, idx, vals = _propagate_operands(n, k2, cuda, pad=5 * (n == 129))
+    kernels.reset_launch_counts()
+    got = kr.gnn_propagate(c, idx, vals)
+    again = kr.gnn_propagate(c, idx, vals)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["gnn_propagate"] == 2
+    want = kr.gnn_propagate_plain(c, idx, vals)
+    assert got.shape == (n, n) and got.dtype == torch.float32
+    assert (got - want).abs().max().item() <= 1e-6
+    assert torch.equal(got, again)
+
+
+def test_gnn_propagate_kernel_rejects_what_it_does_not_take(cuda):
+    c, idx, vals = _propagate_operands(40, 7, cuda)
+    with pytest.raises(TypeError):
+        kr.gnn_propagate(c, idx.int(), vals)
+    with pytest.raises(TypeError):
+        kr.gnn_propagate(c.double(), idx, vals)
+    with pytest.raises(ValueError, match="contiguous"):
+        kr.gnn_propagate(c, idx.T.contiguous().T, vals)
+    with pytest.raises(ValueError, match="contiguous"):
+        kr.gnn_propagate(c.T, idx, vals)
+    with pytest.raises(ValueError):
+        kr.gnn_propagate(c, idx.cpu(), vals)
+    wide = torch.zeros((65, 80), device=cuda)
+    many = torch.zeros((2, 65), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="k2 <="):
+        kr.gnn_propagate(wide, many, torch.ones((2, 65), device=cuda))
+    huge = torch.zeros((2, kr.PROP_MAX_COLS + 1), device=cuda)
+    with pytest.raises(ValueError, match="columns"):
+        kr.gnn_propagate(huge, idx[:2], vals[:2])
+    with pytest.raises(ValueError, match="outside"):
+        kr.gnn_propagate(c[:30], idx, vals)  # rows 30-39 gathered
+    with pytest.raises(ValueError, match="outside"):
+        kr.gnn_propagate(c, idx - 1, vals)
+
+
+# the device re-rankers on the card against the CPU: k-reciprocal at
+# tests/test_rerank.py's settings against the numpy oracle (its tolerance),
+# one jaccard_minsum launch a call; GNN scores of both propagation forms
+# against the same function on CPU tensors (plain gnn_propagate; f32
+# products in another order: 1e-5), two gnn_propagate launches a call
+@pytest.mark.parametrize("seed,k1,k2", [(0, 8, 3), (1, 20, 6), (2, 11, 1)])
+def test_re_ranking_device_on_the_card_matches_the_oracle(cuda, seed, k1, k2):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((12, 16)).astype(np.float32)
+    g = rng.standard_normal((48, 16)).astype(np.float32)
+    args = [((a[:, None] - b[None]) ** 2).sum(-1).astype(np.float32)
+            for a, b in ((q, g), (q, q), (g, g))]
+    kernels.reset_launch_counts()
+    got = re_ranking_device(*[torch.tensor(a, device=cuda) for a in args],
+                            k1=k1, k2=k2)
+    fast = re_ranking_device(*[torch.tensor(a, device=cuda) for a in args],
+                             k1=k1, k2=k2, minsum_bf16=True)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["jaccard_minsum"] == 2
+    want = re_ranking(*args, k1=k1, k2=k2)
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-4, atol=1e-5)
+    assert (fast - got).abs().max().item() < 2e-3
+
+
+# n = 8 at or below k1 + 1, or below k2: the device path with every
+# neighbourhood capped at n, one jaccard_minsum launch, against the oracle
+@pytest.mark.parametrize("k1,k2", [(20, 6), (4, 10), (11, 9)])
+def test_tiny_re_ranking_stays_on_the_card(cuda, k1, k2):
+    rng = np.random.default_rng(k1)
+    q = rng.standard_normal((3, 8)).astype(np.float32)
+    g = rng.standard_normal((5, 8)).astype(np.float32)
+    args = [((a[:, None] - b[None]) ** 2).sum(-1).astype(np.float32)
+            for a, b in ((q, g), (q, q), (g, g))]
+    kernels.reset_launch_counts()
+    got = re_ranking_device(*[torch.tensor(a, device=cuda) for a in args],
+                            k1=k1, k2=k2)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda"
+    assert kernels.launch_counts()["jaccard_minsum"] == 1
+    want = re_ranking(*args, k1=k1, k2=k2)
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("track", [False, True])
+def test_gnn_scores_on_the_card_match_the_cpu(cuda, track):
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((52, 16)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    kernels.reset_launch_counts()
+    got = _gnn_rerank_scores(torch.tensor(x[:12], device=cuda),
+                             torch.tensor(x[12:], device=cuda), 8, 4, track)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["gnn_propagate"] == 2
+    want = _gnn_rerank_scores(torch.tensor(x[:12]), torch.tensor(x[12:]), 8,
+                              4, track)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
