@@ -180,6 +180,23 @@ Phases (any failure raises and exits non-zero):
    forms timed, a profile of one call; ``gnn_propagate`` at the call's
    shape against its plain version (1e-6), twice bit for bit, with its
    times beside the bound.
+13. Eval reporting, on a ``market1501_to_RGBNT201`` tree written as in
+   phase 10. (a) ``configs/market_mm_margin.yaml``'s eval through the CLI
+   (no fused flag) with ``test.visrank True test.visrank_topk 5`` at full
+   width and depth, counts set to 0 just before and read just after:
+   ``distmat`` launched and no other kernel; one strip per query entry, of
+   the size ``visualize_ranked_results`` implies; the t-SNE scatter
+   written, or skipped and why (matplotlib and scikit-learn are
+   optional). Then the same eval with ``cuhk03.use_metric_cuhk03 True``:
+   its CMC finite, non-decreasing and within [0, 1], its mAP within [0, 1].
+   (b) The eval's distmat, on the card, through ``evaluate_rank`` on the
+   device, numpy and native (C++) paths: all three within 1e-6. (c)
+   ``tools/visualize_actmap``'s ``main()`` on the card for RGB, NI and TI:
+   one PNG per query image, ``height x (3 * width + 20) x 3``, the model's
+   parameters on the card. (d) ``tools/rank_speed_test`` at Market-1501's
+   3368 x 15913 (one call each): its times and the native build's seconds;
+   the three within 1e-6. (e) ``tools/parse_test_res`` on (a)'s log
+   directory reads back the mAP and rank-1 that (a) printed.
 
 Each phase prints its seconds, and the run its total. The line before the
 last is the JSON list of kernels; the last line is ``{"ok": true,
@@ -283,6 +300,9 @@ INT8_TOOLS = (("int8_probe", ["--iters", "3"], ("conv_s8",), ()),
 MARKET_Q, MARKET_G, MARKET_IDS = 3368, 15913, 750
 RERANK_K1, RERANK_K2 = 20, 6
 GNN_K1, GNN_K2 = 26, 7
+# phase 13: the strips' depth, and the activation maps' modalities
+VISRANK_TOPK = 5
+ACTMAP_MODALS = ("RGB", "NI", "TI")
 # phase 9: the ablation configs, and the short synthetic set they train on
 # (8 ids x 4 images: 4 steps of the configs' batch 8 an epoch)
 ABLATION = {name: os.path.join(ROOT, "configs", f"rgbnt_{name}_softmax.yaml")
@@ -2304,6 +2324,204 @@ def rerank_phase(results):
             "gnn_propagate": gnn_counts["gnn_propagate"]}
 
 
+def _visrank_cli(data_root, save_dir, *opts):
+    """One eval of ``market_mm_margin.yaml`` through the CLI with
+    ``test.visrank``; returns (rank-1, launch counts, the engine's one
+    ranking as (distmat, ids, keywords, (cmc, mAP)))."""
+    import torch
+
+    from ieee_tpu_torch import main_multimodal
+    from ieee_tpu_torch.engine import engine as engine_mod
+    from ieee_tpu_torch.ops import kernels
+
+    seen = []
+    real = engine_mod.evaluate_rank
+
+    def spy(distmat, *ids, **kw):
+        out = real(distmat, *ids, **kw)
+        seen.append((distmat, ids, kw, out))
+        return out
+
+    engine_mod.evaluate_rank = spy
+    try:
+        kernels.reset_launch_counts()
+        rank1 = main_multimodal.main([
+            "--config-file", MARKET_MM, "--device", "cuda",
+            "--root", data_root, "model.pretrained", "False",
+            "data.save_dir", save_dir, "test.evaluate", "True",
+            "test.visrank", "True", "test.visrank_topk", str(VISRANK_TOPK),
+            *opts])
+        torch.cuda.synchronize()
+    finally:
+        engine_mod.evaluate_rank = real
+    counts = kernels.launch_counts()
+    if len(seen) != 1:
+        raise AssertionError(f"{len(seen)} rankings in one evaluation")
+    if counts["distmat"] < 1 or any(
+            v for k, v in counts.items() if k != "distmat"):
+        raise AssertionError(f"visrank eval: distmat not launched, or "
+                             f"other kernels: {counts}")
+    return rank1, counts, seen[0]
+
+
+def eval_report():
+    """Phase 13: visrank and the CUHK03 metric through the CLI, the three
+    rankers on the eval's distmat, the activation maps, the rank speed at
+    Market-1501 scale and ``parse_test_res``."""
+    import shutil
+    import warnings
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from ieee_tpu_torch.ops.ranking import evaluate_rank
+    from ieee_tpu_torch.tools import (parse_test_res, rank_speed_test,
+                                      visualize_actmap)
+    from ieee_tpu_torch.utils.reidtools import (BW, GRID_SPACING,
+                                                QUERY_EXTRA_SPACING)
+
+    save_dir = os.path.join(ROOT, "log", "chip_smoke_report")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    data = os.path.join(save_dir, "data")
+    write_market_mm_tree(data)
+    height, width = 256, 128  # market_mm_margin.yaml's
+
+    # (a) visrank through the CLI: one strip per query entry
+    t0 = time.perf_counter()
+    rank1, counts, (distmat, ids, _, (cmc, mAP)) = _visrank_cli(
+        data, os.path.join(save_dir, "visrank"))
+    strips_dir = os.path.join(save_dir, "visrank", "visrank_market_to_RGBNT201")
+    strips = sorted(os.listdir(strips_dir))
+    num_q = distmat.shape[0]
+    want = (height + 2 * BW, (width + 2 * BW) * (VISRANK_TOPK + 1)
+            + QUERY_EXTRA_SPACING + GRID_SPACING * (VISRANK_TOPK - 1), 3)
+    shapes = {np.asarray(Image.open(os.path.join(strips_dir, f))).shape
+              for f in strips}
+    print(f"visrank CLI eval (market_mm_margin.yaml, {num_q} query x "
+          f"{distmat.shape[1]} gallery, top {VISRANK_TOPK}): rank1 "
+          f"{rank1:.4f}, mAP {mAP:.4f}, launches "
+          f"{ {k: v for k, v in counts.items() if v} }; {len(strips)} strips "
+          f"of {sorted(shapes)}; {time.perf_counter() - t0:.1f} s")
+    if len(strips) != num_q or shapes != {want}:
+        raise AssertionError(f"visrank: {len(strips)} strips of {shapes}, "
+                             f"want {num_q} of {want}")
+    tsne = os.path.join(save_dir, "visrank", "tsne_market_to_RGBNT201.png")
+    if os.path.isfile(tsne):
+        print(f"t-SNE scatter written: {tsne}")
+    else:
+        missing = []
+        for mod in ("matplotlib", "sklearn"):
+            try:
+                __import__(mod)
+            except ImportError:
+                missing.append(mod)
+        if not missing:
+            raise AssertionError("t-SNE scatter not written, and "
+                                 "matplotlib and sklearn import")
+        print(f"t-SNE scatter skipped: {', '.join(missing)} not installed "
+              "(both optional)")
+
+    # the same eval with the CUHK03 metric
+    t0 = time.perf_counter()
+    _, counts3, (_, _, kw3, (cmc3, mAP3)) = _visrank_cli(
+        data, os.path.join(save_dir, "cuhk03"),
+        "cuhk03.use_metric_cuhk03", "True")
+    cmc3 = np.asarray(cmc3, np.float64)
+    print(f"CUHK03 metric CLI eval: mAP {mAP3:.4f}, CMC "
+          f"{np.round(cmc3[:10], 4).tolist()}, launches "
+          f"{ {k: v for k, v in counts3.items() if v} }; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not (kw3.get("use_metric_cuhk03") and np.isfinite(cmc3).all()
+            and np.all(np.diff(cmc3) >= 0) and 0 <= cmc3.min()
+            and cmc3.max() <= 1 and 0.0 <= mAP3 <= 1.0):
+        raise AssertionError(f"CUHK03 metric: {kw3}, CMC {cmc3}, mAP {mAP3}")
+
+    # (b) the three rankers on the eval's distmat, on the card
+    if distmat.device.type != "cuda":
+        raise AssertionError(f"the eval's distmat is on {distmat.device}")
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        # a native ranker that cannot load warns and takes the device
+        # path: fail instead
+        warnings.simplefilter("error")
+        rankers = {"device": evaluate_rank(distmat, *ids, use_device=True),
+                   "numpy": evaluate_rank(distmat, *ids, use_device=False),
+                   "native": evaluate_rank(distmat, *ids, use_cython=True)}
+    errs = {name: max(float(np.abs(c - rankers["numpy"][0]).max()),
+                      abs(m - rankers["numpy"][1]))
+            for name, (c, m) in rankers.items()}
+    print(f"rankers on the eval's distmat: mAP "
+          f"{ {k: round(v[1], 6) for k, v in rankers.items()} }, max "
+          f"|diff| against numpy {errs} (1e-6); "
+          f"{time.perf_counter() - t0:.1f} s")
+    if max(errs.values()) > 1e-6:
+        raise AssertionError(f"rankers disagree: {errs}")
+
+    # (c) activation maps of each modality, the model on the card
+    t0 = time.perf_counter()
+    models = []
+    real = visualize_actmap.visactmap
+
+    def spy(model, *args, **kw):
+        models.append(model)
+        return real(model, *args, **kw)
+
+    visualize_actmap.visactmap = spy
+    try:
+        for modal in ACTMAP_MODALS:
+            out = os.path.join(save_dir, "actmap", modal)
+            written = visualize_actmap.main([
+                "--config-file", MARKET_MM, "--root", data,
+                "--save-dir", out, "--modal", modal, "--device", "cuda",
+                "model.pretrained", "False"])
+            shapes = {np.asarray(Image.open(p)).shape for p in written}
+            on = {p.device.type for m in models[-1:] for p in m.parameters()}
+            print(f"actmap {modal}: {len(written)} PNGs of {sorted(shapes)}, "
+                  f"parameters on {sorted(on)}")
+            if len(written) != num_q or shapes != {(height, 3 * width + 20,
+                                                    3)}:
+                raise AssertionError(f"actmap {modal}: {len(written)} of "
+                                     f"{shapes}")
+            if on != {"cuda"}:
+                raise AssertionError(f"actmap {modal}: parameters on {on}")
+            del written
+            models.clear()
+            torch.cuda.empty_cache()
+    finally:
+        visualize_actmap.visactmap = real
+    print(f"actmaps: {time.perf_counter() - t0:.1f} s")
+
+    # (d) rank speed at Market-1501's test split; the tool checks 1e-4,
+    # and the three must agree to 1e-6
+    t0 = time.perf_counter()
+    res = rank_speed_test.main(["--device", "cuda", "--num-q", str(MARKET_Q),
+                                "--num-g", str(MARKET_G), "--repeat", "1"])
+    ref = res["numpy"]
+    errs = {name: max(float(np.abs(r[1] - ref[1]).max()), abs(r[2] - ref[2]))
+            for name, r in res.items() if name != "native build s"}
+    build = res["native build s"]
+    print(f"rank speed ({MARKET_Q} x {MARKET_G}, max_rank 50, one call "
+          f"each, the device's after one warm-up): "
+          + ", ".join(f"{name} {res[name][0] * 1e3:.3f} ms"
+                      for name in errs)
+          + f"; native build {'none (built before)' if build is None else f'{build:.3f} s'}"
+          f"; max |diff| against numpy {errs}; {card_line()}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if max(errs.values()) > 1e-6:
+        raise AssertionError(f"rank speed: rankers disagree: {errs}")
+
+    # (e) parse_test_res reads back what (a) printed
+    avg = parse_test_res.main([os.path.join(save_dir, "visrank")])
+    printed = {"mAP": float(f"{mAP * 100:.1f}"),
+               "r1": float(f"{cmc[0] * 100:.1f}")}
+    print(f"parse_test_res on (a)'s log: {avg}, printed {printed}")
+    if any(not abs(avg.get(k, math.nan) - v) <= 1e-9
+           for k, v in printed.items()):
+        raise AssertionError(f"parse_test_res read {avg}, want {printed}")
+    shutil.rmtree(save_dir, ignore_errors=True)
+
+
 def run_tools(tools=TOOLS):
     """Phase 8 (and 11's int8 tools): each measurement tool's ``main()`` on
     the card; returns the launch counts of each run, by the tool's name and
@@ -2441,6 +2659,9 @@ def main():
     t0 = time.perf_counter()
     rerank_counts = rerank_phase(results)
     print(f"phase re-ranking: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    eval_report()
+    print(f"phase eval reporting: {time.perf_counter() - t0:.1f} s")
 
     # each kernel's reported numbers: the weighted sum of its cases, where
     # the weight is how often the case runs in the reported unit: distmat

@@ -12,8 +12,11 @@ distmat, CMC/mAP) and its training path (losses, optimizers, the P x K
 sampler, the flip, ``Image3MEngine``, the softmax engines), with the CLI
 (``python -m ieee_tpu_torch.main_multimodal``) for both; the single-modal
 ResNet family (``ReIDResNet``) with ``python -m ieee_tpu_torch.main``; the
-Market-1501, market_to_RGBNT201, AllDay and UAV datasets; and the
-measurement tools (``python -m ieee_tpu_torch.tools.<name>``).
+Market-1501, market_to_RGBNT201, AllDay and UAV datasets; the int8 eval
+path and the feature extractor; re-ranking and the rest of evaluation
+(the CUHK03/RegDB metrics, the native C++ ranker, ``test.visrank``); and
+the measurement and reporting tools (``python -m
+ieee_tpu_torch.tools.<name>``).
 """
 
 __version__ = "0.1.0"

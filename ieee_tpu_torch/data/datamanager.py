@@ -3,7 +3,8 @@ reference ``torchreid/data/datamanager.py:90-348``).
 
 Builds the sum-of-sources train set and its train loader (the train
 sampler, ``drop_last``), and per-target query/gallery test loaders, all
-yielding uint8 numpy batches; the transforms run on the device
+yielding uint8 numpy batches, with each target's query and gallery records
+(``test_dataset``); the transforms run on the device
 (``transforms.py``). The JAX package's decode and device caches, the
 unlabeled target train loader and multi-host sampler sharding are not
 ported yet.
@@ -82,6 +83,9 @@ class ImageDataManager:
         if verbose:
             print("=> Loading test (target) dataset")
         self.test_loader: Dict[str, Dict[str, DataLoader]] = {}
+        # each target's query and gallery records (path(s), pid, camid,
+        # ...), which test.visrank draws
+        self.test_dataset: Dict[str, Dict[str, list]] = {}
         for name in self.targets:
             sets = {
                 mode: init_image_dataset(
@@ -96,6 +100,8 @@ class ImageDataManager:
                                  workers=workers, prefetch=prefetch)
                 for mode, ds in sets.items()
             }
+            self.test_dataset[name] = {"query": sets["query"].query,
+                                       "gallery": sets["gallery"].gallery}
 
         if verbose:
             print("\n  **************** Summary ****************")

@@ -30,8 +30,10 @@ arrays, go to the device, and are transformed there.
   until the metrics are read. ``test.rerank`` re-ranks the distmat
   (k-reciprocal, k1 20, k2 6, lambda 0.3): on the card through
   ``re_ranking_device``, on a CPU engine through the numpy oracle, as the
-  JAX engine off the TPU. ``test`` returns the rank-1 of the LAST target
-  dataset, the reference's quirk (``engine.py:319-337``).
+  JAX engine off the TPU. ``test.visrank`` writes the ranked strips of the
+  distmat that was ranked and, multi-modal, a t-SNE scatter of the query
+  features (``utils/reidtools.py``). ``test`` returns the rank-1 of the
+  LAST target dataset, the reference's quirk (``engine.py:319-337``).
 """
 
 from __future__ import annotations
@@ -403,8 +405,6 @@ class Engine:
                   save_dir="", use_metric_cuhk03=False, ranks=(1, 5, 10, 20),
                   rerank=False):
         """-> (cmc numpy, mAP): the full CMC curve and the mAP."""
-        if visrank:
-            raise NotImplementedError("test.visrank is not ported yet")
         print("Extracting features from query set ...")
         qf, q_pids, q_camids = self._feature_extraction(query_loader)
         print(f"Done, obtained {qf.shape[0]}-by-{qf.shape[1]} matrix")
@@ -449,7 +449,44 @@ class Engine:
             "dataset": dataset_name, "mAP": float(mAP),
             **{f"rank{r}": float(cmc[r - 1]) for r in ranks},
         })
+
+        if visrank:
+            self._visualize(dataset_name, distmat, qf, q_pids, save_dir,
+                            visrank_topk)
         return cmc, mAP
+
+    def _visualize(self, dataset_name, distmat, qf, q_pids, save_dir, topk):
+        """``test.visrank``: the strips of the ranked distmat (re-ranked
+        when ``test.rerank``) under ``save_dir/visrank_<dataset>``, then,
+        with more than one stream, the per-modality t-SNE scatter of the
+        query features (the JAX engine's branch)."""
+        from ..utils.reidtools import visualize_ranked_results
+
+        if isinstance(distmat, torch.Tensor):
+            distmat = distmat.cpu().numpy()
+        td = self.datamanager.test_dataset[dataset_name]
+        visualize_ranked_results(
+            distmat, (td["query"], td["gallery"]),
+            self.datamanager.data_type, width=self.datamanager.width,
+            height=self.datamanager.height,
+            save_dir=osp.join(save_dir, "visrank_" + dataset_name),
+            topk=topk,
+        )
+        if self.datamanager.num_streams > 1 and qf.shape[1] % 3 == 0:
+            # multi-modal: per-modality t-SNE scatter (the reference's
+            # visrank replacement, engine.py:437-439/463-490; the T,R,N
+            # block slicing is fixed here — SURVEY quirk list)
+            try:
+                from ..utils.reidtools import show_point_multi_modal
+
+                d = qf.shape[1] // 3
+                show_point_multi_modal(
+                    qf.cpu().numpy(), q_pids,
+                    save_path=osp.join(save_dir, f"tsne_{dataset_name}.png"),
+                    modal_dims=(d, d, d),
+                )
+            except ImportError as e:  # sklearn optional
+                print(f"t-SNE skipped ({e})")
 
     def test(self, dist_metric="euclidean", normalize_feature=False,
              visrank=False, visrank_topk=10, save_dir="",

@@ -1,4 +1,4 @@
-"""Console tee logger.
+"""Console tee logger and rank-result logger.
 
 Counterpart of ``ieee_tpu/utils/loggers.py``; reference analog:
 ``torchreid/utils/loggers.py:8-146``.
@@ -11,7 +11,7 @@ import sys
 
 from .tools import mkdir_if_missing
 
-__all__ = ["Logger"]
+__all__ = ["Logger", "RankLogger"]
 
 
 class Logger:
@@ -81,3 +81,26 @@ class Logger:
 
     def readable(self):
         return False
+
+
+class RankLogger:
+    """Records rank-1 at each eval epoch per dataset and prints a summary."""
+
+    def __init__(self, sources, targets):
+        self.sources = [sources] if isinstance(sources, str) else list(sources)
+        self.targets = [targets] if isinstance(targets, str) else list(targets)
+        self.logger = {
+            name: {"epoch": [], "rank1": []} for name in self.targets
+        }
+
+    def write(self, name, epoch, rank1):
+        self.logger[name]["epoch"].append(epoch)
+        self.logger[name]["rank1"].append(rank1)
+
+    def show_summary(self):
+        print("=> Show performance summary")
+        for name, d in self.logger.items():
+            from_where = "source" if name in self.sources else "target"
+            print(f"{name} ({from_where})")
+            for epoch, rank1 in zip(d["epoch"], d["rank1"]):
+                print(f"- epoch {epoch}\t rank1 {rank1:.1%}")

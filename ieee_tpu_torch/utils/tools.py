@@ -8,15 +8,18 @@ bounded number of times instead of looping forever (reference
 from __future__ import annotations
 
 import errno
+import json
 import os
 import os.path as osp
 import random
 import time
+import warnings
 
 import numpy as np
 import torch
 
-__all__ = ["mkdir_if_missing", "set_random_seed", "read_image"]
+__all__ = ["mkdir_if_missing", "check_isfile", "read_json", "write_json",
+           "set_random_seed", "read_image"]
 
 
 def mkdir_if_missing(dirname: str) -> None:
@@ -26,6 +29,24 @@ def mkdir_if_missing(dirname: str) -> None:
         except OSError as e:
             if e.errno != errno.EEXIST:
                 raise
+
+
+def check_isfile(fpath: str) -> bool:
+    isfile = osp.isfile(fpath)
+    if not isfile:
+        warnings.warn(f'No file found at "{fpath}"')
+    return isfile
+
+
+def read_json(fpath: str):
+    with open(fpath, "r") as f:
+        return json.load(f)
+
+
+def write_json(obj, fpath: str) -> None:
+    mkdir_if_missing(osp.dirname(fpath))
+    with open(fpath, "w") as f:
+        json.dump(obj, f, indent=4, separators=(",", ": "))
 
 
 def set_random_seed(seed: int) -> None:

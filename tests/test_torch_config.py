@@ -96,7 +96,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "ieee_tpu_torch.ops.gnn_rerank, "
             "ieee_tpu_torch.ops.kernels.rerank, "
             "ieee_tpu_torch.tools.rerank_bench, "
-            "ieee_tpu_torch.tools.gnn_rerank_cli; "
+            "ieee_tpu_torch.tools.gnn_rerank_cli, "
+            "ieee_tpu_torch.native.ranking, ieee_tpu_torch.utils.reidtools, "
+            "ieee_tpu_torch.tools.rank_speed_test, "
+            "ieee_tpu_torch.tools.visualize_actmap, "
+            "ieee_tpu_torch.tools.parse_test_res; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'ieee_tpu.')) or m == 'ieee_tpu']; "
             "assert not bad, bad")

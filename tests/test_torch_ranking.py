@@ -71,9 +71,11 @@ def test_queries_without_positives_are_dropped_and_all_missing_raises():
     assert mAP == 1.0
     with pytest.raises(ValueError):
         evaluate_rank(d, [7, 9], [0, 1], [0, 0], [1, 1])
-    with pytest.raises(NotImplementedError):
-        evaluate_rank(d, [0, 1], [0, 1], [0, 0], [1, 1],
-                      use_metric_cuhk03=True)
+    # the CUHK03 metric runs: one positive per query, ranked first
+    cmc, mAP = evaluate_rank(d, [0, 9], [0, 1], [0, 0], [1, 1], max_rank=2,
+                             use_metric_cuhk03=True)
+    np.testing.assert_allclose(cmc, [1.0, 1.0])
+    assert mAP == 1.0
 
 
 def test_distance_input_checks():

@@ -293,11 +293,6 @@ def test_engine_rerank_matches_the_jax_pipeline(engine, monkeypatch):
     assert abs(mAP - mAP_j) < 1e-6
 
 
-def test_visrank_is_still_refused(engine):
-    with pytest.raises(NotImplementedError, match="visrank"):
-        engine._evaluate(visrank=True)
-
-
 def test_config_key_reaches_the_engine(engine):
     cfg = get_default_config()
     assert cfg.cuda.rerank_bf16 is False and cfg.test.rerank is False

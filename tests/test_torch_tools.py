@@ -20,7 +20,7 @@ from torch_threads import one_torch_thread  # noqa: F401
 TOOLS = ("bw_probe", "bw_probe2", "fusion_probe", "roofline_probe",
          "profile_train", "eval_bench", "eval_fwd_bench", "loader_bench",
          "block_bench", "mm_bench", "kernel_bench", "int8_probe",
-         "int8_e2e_eval")
+         "int8_e2e_eval", "rank_speed_test", "visualize_actmap")
 
 
 def _tool(name):
